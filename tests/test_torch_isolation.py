@@ -1,0 +1,65 @@
+"""The port stands alone: it imports neither JAX nor the JAX package."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b)",
+                       re.MULTILINE)
+
+
+def port_modules():
+    import repro_torch
+
+    return ["repro_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = port_modules()
+    assert "repro_torch.launch.serve" in mods
+    assert "repro_torch.core.sharded_backend" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(n for n in sys.modules if n == 'jax' or "
+            "n.startswith('jax.') or n == 'repro' or "
+            "n.startswith('repro.'))\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + env.get("PYTHONPATH", "").split(os.pathsep))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_no_source_file_imports_jax_or_repro():
+    offenders = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    for m in FORBIDDEN.finditer(fh.read()):
+                        offenders.append(f"{os.path.relpath(path, ROOT)}: "
+                                         f"{m.group(0).strip()}")
+    assert not offenders, offenders
+
+
+def test_the_pattern_catches_what_it_should():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                 "    from repro.core import routing", "import repro"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.core import x",
+                 "# jax is the reference", "import jaxtyping"):
+        assert not FORBIDDEN.search(line), line
