@@ -175,10 +175,16 @@ def attention_case(dev, B, H, KV, S, hd, dt, kv_len, *, causal=False,
            "max_abs_err": err, "tol": tol, "finite": finite,
            "kv_len0_rows_zero": zeros_ok,
            "ok": err <= tol and finite and zeros_ok}
+    # what these inputs need: q rows with at least one valid key, k and v
+    # rows that some query may see, every output row (a row with no valid
+    # key is still written, as zeros) and kv_len
     esize = q.element_size()
-    nbytes = (2 * B * H * S * hd + 2 * B * KV * S * hd) * esize + 4 * B
     mask = attention_mask(B, S, S, causal=causal, window=window, kv_len=kvl,
-                          device=dev)
+                          device=dev)                       # (B, Sq, Sk)
+    q_rows = int(mask.any(-1).sum().item())
+    kv_rows = int(mask.any(-2).sum().item())
+    nbytes = ((H * q_rows + B * H * S + 2 * KV * kv_rows) * hd * esize
+              + 4 * B)
     flops = 4 * hd * H * int(mask.sum().item())   # QK^T and PV, valid pairs
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops, dtype_name(dt))
     out["kernel_ms"] = time_ms(lambda: flash_attention(q, k, v, **kw), dev)
@@ -213,17 +219,22 @@ def pool_case(dev, B, S, D, dt, pool, lens) -> dict:
     out = {"B": B, "S": S, "D": D, "dtype": dtype_name(dt), "pool": pool,
            "max_abs_err": err, "tol": tol, "masked_rows_zero": zeros_ok,
            "ok": err <= tol and zeros_ok and got.dtype == torch.float32}
+    # what these inputs need: the hidden rows of unmasked tokens (mean) or
+    # token 0 of rows whose first token is unmasked (CLS), the mask, the
+    # output
     esize = h.element_size()
     if pool == "mean":
-        nbytes = B * S * D * esize + 4 * B * S + 4 * B * D
-        flops = 2 * B * S * D + 3 * B * D
+        tokens = sum(min(n, S) for n in lens)
+        nbytes = tokens * D * esize + 4 * B * S + 4 * B * D
+        flops = 2 * tokens * D + 3 * B * D
 
         def library():
             pooled = torch.einsum("bsd,bs->bd", h.float(), mask) \
                 / mask.sum(1, keepdim=True).clamp_min(1.0)
             return F.normalize(pooled, dim=-1, eps=1e-9)
     else:      # CLS needs token 0 of each row and mask[:, 0] only
-        nbytes = B * D * esize + 4 * B + 4 * B * D
+        cls_rows = sum(1 for n in lens if n > 0)
+        nbytes = cls_rows * D * esize + 4 * B + 4 * B * D
         flops = 4 * B * D
 
         def library():

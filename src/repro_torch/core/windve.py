@@ -137,8 +137,8 @@ class TorchEmbedderBackend(Backend):
     at load by ``repro_torch.models.quantize.serve_params``: ``"fp32"``
     (fp32 weights + fp32 trunk -- the precision oracle) or ``"bf16"``
     (bf16-resident weights, bf16 trunk).  None keeps the params as given
-    with the model's default compute dtype.  On the card, full-fp32 matmuls
-    are forced (TF32 off), so the fp32 policy is what it says.
+    with the model's default compute dtype; an fp32 forward on the card
+    needs TF32 off, which ``serve_params("fp32")`` sets.
     """
 
     def __init__(self, cfg, params, max_tokens: int = 128,
@@ -167,11 +167,6 @@ class TorchEmbedderBackend(Backend):
             tree, cdt = serve_params(params, dtype)
         self.params = _tree_to(tree, self.device)
         self.compute_dtype = cdt
-        if self.device.type == "cuda":
-            # the fp32 policy is the precision oracle: TF32 would keep only
-            # ~3 decimal digits in every fp32 matmul, so it is switched off
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         self._torch = torch
         self._embedder = embedder
         self._shapes: set = set()

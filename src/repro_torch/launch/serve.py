@@ -61,9 +61,9 @@ MIN_SEQ_BUCKET = 16
 def build_engine(model: str = "bge-large-zh-v1.5", slo: float = 1.0,
                  smoke: bool = True, heter: bool = True,
                  npu_model: str = "tesla-v100/bge", seed: int = 0,
-                 policy: str = "cascade", devices: int = 0,
-                 npu_devices: int = 1, prewarm: bool = False,
-                 hosts: int = 1, replicas: int = 1, device="cuda"):
+                 policy: str = "cascade", npu_devices: int = 1,
+                 prewarm: bool = False, hosts: int = 1, replicas: int = 1,
+                 device="cuda"):
     cfg = get_config(model)
     if smoke:
         cfg = cfg.smoke()
@@ -88,17 +88,12 @@ def build_engine(model: str = "bge-large-zh-v1.5", slo: float = 1.0,
                               devices=npu_devices)
 
     npu_be = npu_backend(0, 0)
-    # the real pool: one tier on one device (the backend refuses more);
-    # dtype / async dispatch follow the embed_* serving flags
-    local = ([torch.device("cuda", i)
-              for i in range(torch.cuda.device_count())]
-             if dev.type == "cuda" else [dev])
-    cpu_be = ShardedEmbedderBackend(
-        cfg, params, max_tokens=MAX_TOKENS,
-        devices=local[:devices] if devices else [dev],
-        min_seq_bucket=MIN_SEQ_BUCKET)
-    print(f"[serve] embed pool: {cpu_be.name} "
-          f"(on {cpu_be.device_count} of {len(local)} local devices)")
+    # the real pool: one tier on one device (fan-out over several cards
+    # comes with the replica/mesh slice); dtype / async dispatch follow the
+    # embed_* serving flags
+    cpu_be = ShardedEmbedderBackend(cfg, params, max_tokens=MAX_TOKENS,
+                                    device=dev, min_seq_bucket=MIN_SEQ_BUCKET)
+    print(f"[serve] embed pool: {cpu_be.name}")
     if prewarm:
         n = cpu_be.prewarm(cpu_be.warm_grid(max_batch=16))
         print(f"[serve] prewarmed {n} (B, S) buckets — no new shape while "
@@ -278,10 +273,6 @@ def main() -> None:
                          "retry_backoff_ms=N,breaker=N,breaker_cooldown_ms=N"
                          "; overload control: admission=on,reject_cost=X,"
                          "watermark=N,brownout=on")
-    ap.add_argument("--devices", type=int, default=0,
-                    help="devices the embed tier fans out over (0 = the one "
-                         "--device names; more than 1 is refused until the "
-                         "replica/mesh slice)")
     ap.add_argument("--npu-devices", type=int, default=1,
                     help="devices the MODELED accelerator tier fans out "
                          "over (DES-calibrated Eq. 12 fan-out curve)")
@@ -300,7 +291,7 @@ def main() -> None:
     if args.opt:
         perf_flags.set_flags(**perf_flags.parse_opt(args.opt))
     engine, cfg = build_engine(args.model, args.slo, heter=not args.no_heter,
-                               policy=args.policy, devices=args.devices,
+                               policy=args.policy,
                                npu_devices=args.npu_devices,
                                prewarm=args.prewarm,
                                hosts=args.hosts, replicas=args.replicas,

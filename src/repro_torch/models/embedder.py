@@ -111,12 +111,20 @@ def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     softmax (``kv_len``), so an embedding does not depend on how far its
     batch was padded.  ``compute_dtype`` is the trunk's activation dtype
     (weights are cast to it at use); None keeps ``layers.COMPUTE_DTYPE``.
-    The pooling epilogue accumulates in fp32 for any compute dtype.
+    The pooling epilogue accumulates in fp32 for any compute dtype.  An fp32
+    forward on the card raises while TF32 matmuls are on
+    (``quantize.serve_params(params, "fp32")`` switches them off).
     """
     B, S = tokens.shape
     device = tokens.device
     positions = torch.arange(S, dtype=torch.int32, device=device)
     cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
+    if (device.type == "cuda" and cdt == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "fp32 embed on the card with TF32 matmuls on: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False (serve_params("
+            "params, 'fp32') does) so fp32 means fp32")
     h = params["embed"][tokens.long()].to(cdt)
     h = h + L.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
     blocks = params["blocks"]

@@ -39,6 +39,12 @@ def serve_params(params: Params, dtype: str) -> Tuple[Params, torch.dtype]:
     Returns ``(tree, compute_dtype)``: ``fp32`` gives the tree untouched and
     fp32 activations; ``bf16`` casts every float leaf once to bf16 and
     computes in bf16.
+
+    ``fp32`` is the precision oracle, so realising it switches TF32 off for
+    the process (``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32``): TF32 keeps about three decimal
+    digits in every fp32 matmul on the card.  ``embed`` refuses an fp32
+    forward on the card while TF32 is on.
     """
     if dtype not in EMBED_DTYPES:
         raise ValueError(f"embed dtype must be one of {'|'.join(EMBED_DTYPES)}"
@@ -50,4 +56,6 @@ def serve_params(params: Params, dtype: str) -> Tuple[Params, torch.dtype]:
             f"listed first in ROADMAP.md); this port serves fp32 and bf16")
     if dtype == "bf16":
         return _cast_floats(params, torch.bfloat16), torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return params, torch.float32

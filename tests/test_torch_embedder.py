@@ -268,6 +268,19 @@ class TestPolicies:
         with pytest.raises(NotImplementedError, match="int8 slice"):
             serve_params({"w": torch.ones(2, 2)}, dtype)
 
+    def test_fp32_policy_switches_tf32_off(self):
+        flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+        saved = [f.allow_tf32 for f in flags]
+        try:
+            for f in flags:
+                f.allow_tf32 = True
+            tree, cdt = serve_params({"w": torch.ones(2)}, "fp32")
+            assert cdt == torch.float32 and tree["w"].dtype == torch.float32
+            assert not any(f.allow_tf32 for f in flags)
+        finally:
+            for f, v in zip(flags, saved):
+                f.allow_tf32 = v
+
     def test_unknown_policy_rejected(self):
         with pytest.raises(ValueError, match="fp32|bf16"):
             serve_params({}, "fp16")

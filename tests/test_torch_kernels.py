@@ -2,8 +2,8 @@
 
 On the CPU each router takes the kernel's plain PyTorch version; it is held
 against the reference's plain version and against its Pallas kernel run in
-interpret mode, on the same numpy inputs.  The CUDA cases compare each
-kernel with its plain version on the card and skip when there is none.
+interpret mode, on the same numpy inputs.  The kernels themselves are held
+against their plain versions on the card in ``test_torch_kernels_card.py``.
 """
 import subprocess
 import sys
@@ -193,41 +193,3 @@ class TestRouting:
         assert path == build.library_path()    # stable for unchanged sources
         assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda", 0)
-
-
-class TestOnCard:
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("case", ATTN_CASES)
-    def test_attention_kernel_matches_plain(self, cuda, case, dtype):
-        B, H, KV, S, hd, causal, window, kv_len = case
-        q, k, v = (_as(x, dtype).to(cuda) for x in _attn_inputs(B, H, KV, S,
-                                                                hd))
-        kvl = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
-        before = flash_attention.launches
-        got = flash_attention(q, k, v, causal=causal, window=window,
-                              kv_len=kvl)
-        torch.cuda.synchronize()
-        assert flash_attention.launches == before + 1
-        want = attention_ref(q, k, v, causal=causal, window=window,
-                             kv_len=kvl)
-        assert torch.isfinite(got).all()
-        torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                                   atol=TOL[dtype] * 10)
-
-    @pytest.mark.parametrize("pool", ["mean", "cls"])
-    def test_pool_norm_kernel_matches_plain(self, cuda, pool):
-        h = torch.randn(4, 7, 32, device=cuda)
-        m = (torch.arange(7, device=cuda)[None]
-             < torch.tensor(POOL_LENS, device=cuda)[:, None]).float()
-        before = pool_norm.launches
-        got = pool_norm(h, m, pool)
-        torch.cuda.synchronize()
-        assert pool_norm.launches == before + 1
-        torch.testing.assert_close(got, pool_norm_ref(h, m, pool), rtol=0,
-                                   atol=1e-5)
