@@ -15,13 +15,14 @@ non-zero:
            library call's (a yardstick the port never calls) and the bound.
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
-           vectors, bf16 within 1e-2 cosine distance.
+           vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
+           within 2e-2.
   serve    build_engine + WindVE.submit at full width: bge-large-zh-v1.5
-           (24 x 1024) in fp32 and in bf16, and jina-v2 in fp32 (mean
-           pooling).  Launch counts are zeroed just before this phase and
-           read just after it.
-  profile  (only when named) one bge forward at B=16 x S=96 in fp32 and
-           bf16: host clock, enqueue time, device busy time from a
+           (24 x 1024) in fp32, bf16, int8 and int8_w8a8, and jina-v2 in
+           fp32 (mean pooling).  Launch counts are zeroed just before this
+           phase and read just after it; every kernel must have run.
+  profile  (only when named) one bge forward at B=16 x S=96 under each
+           policy: host clock, enqueue time, device busy time from a
            torch.profiler trace, kernels per forward and the top kernels.
 
 Times are CUDA-event timings: one warm-up call, then the median over
@@ -49,14 +50,24 @@ PHASES = ("build", "kernels", "golden", "serve")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # fp32 outside the tensor cores
-              "bfloat16": 989e12}    # dense bf16 tensor cores
+              "bfloat16": 989e12,    # dense bf16 tensor cores
+              "int8": 1979e12}       # dense int8 tensor cores
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 PN_SOURCE = "src/repro_torch/csrc/pool_norm.cu"
+QM_SOURCE = "src/repro_torch/csrc/quant_matmul.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:111"
 PN_REPLACES = "src/repro/kernels/pool_norm/pool_norm.py:45"
+QM_REPLACES = "src/repro/kernels/quant_matmul/quant_matmul.py:111"
+W8_REPLACES = "src/repro/kernels/quant_matmul/quant_matmul.py:182"
+# quantize_rows replaces the jnp prologue w8a8_matmul_pallas is fed by
+QR_REPLACES = "src/repro/kernels/quant_matmul/quant_matmul.py:47"
 # the main path's attention and epilogue shapes: bge-large-zh-v1.5 at
 # batch 16 and the 96-token window
 MAIN_B, MAIN_S, MAIN_H, MAIN_HD, MAIN_D = 16, 96, 16, 64, 1024
+# its projections (K, N): q/k/v/o, w_in, w_out; the summary line shows w_in
+MAIN_KN = ((1024, 1024), (1024, 4096), (4096, 1024))
+MAIN_F = 4096
+POLICIES = ("fp32", "bf16", "int8", "int8_w8a8")
 
 
 def emit(obj) -> None:
@@ -247,6 +258,99 @@ def pool_case(dev, B, S, D, dt, pool, lens) -> dict:
     return out
 
 
+def _qm_inputs(dev, M, K, N, seed=2):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(dev)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    s = np.abs(rng.standard_normal(N, np.float32)) * 0.01 + 1e-4
+    return x, w8.to(dev), torch.from_numpy(s.astype(np.float32)).to(dev)
+
+
+def quant_matmul_case(dev, M, K, N) -> dict:
+    """Weight-only int8 GEMM, fp32 x (the int8 policy's dtype)."""
+    from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_ref
+
+    x, w8, s = _qm_inputs(dev, M, K, N)
+    got = quant_matmul(x, w8, s)
+    want = quant_matmul_ref(x, w8, s)
+    # fp32 FMAs in another order than the plain version's GEMM: the error
+    # is held to 1e-5 of the output's largest magnitude
+    err = (got - want).abs().max().item()
+    tol = 1e-5 * want.abs().max().item()
+    out = {"M": M, "K": K, "N": N, "dtype": "float32", "max_abs_err": err,
+           "tol": tol, "ok": err <= tol and got.dtype == want.dtype}
+    nbytes = 4 * M * K + K * N + 4 * N + 4 * M * N
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 2 * M * K * N, "float32")
+    out["kernel_ms"] = time_ms(lambda: quant_matmul(x, w8, s), dev)
+    out["plain_ms"] = time_ms(lambda: quant_matmul_ref(x, w8, s), dev)
+    out["library_ms"] = time_ms(lambda: x @ (w8.float() * s), dev)
+    return out
+
+
+def quantize_rows_case(dev, M, K) -> dict:
+    """Per-row int8 activations from fp32: bit for bit the plain version."""
+    import torch
+
+    from repro_torch.kernels.quant_matmul import (quantize_activations,
+                                                  quantize_rows)
+
+    x, _, _ = _qm_inputs(dev, M, K, 1, seed=3)
+    x[1] = 0.0                            # a zero row: scale 1
+    x[2] *= 1e-40                         # a subnormal row: scale 1
+    x[3, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5])   # ties, round to even
+    x[3, 4:] = 0.0
+    x8, xs = quantize_rows(x)
+    w8, ws = quantize_activations(x)
+    bitwise = bool(torch.equal(x8, w8)
+                   and torch.equal(xs.view(torch.int32), ws.view(torch.int32)))
+    out = {"M": M, "K": K, "dtype": "float32",
+           "max_abs_err": (x8.int() - w8.int()).abs().max().item(),
+           "tol": 0, "bitwise": bitwise, "ok": bitwise}
+    # reads x, writes x8 and a scale a row; a max, a divide and a round a
+    # value
+    out["bound_ms"], out["bound_by"] = bound(5 * M * K + 4 * M, 3 * M * K,
+                                             "float32")
+    out["kernel_ms"] = time_ms(lambda: quantize_rows(x), dev)
+    out["plain_ms"] = time_ms(lambda: quantize_activations(x), dev)
+    out["library_ms"] = None              # no one PyTorch call does this
+    return out
+
+
+def w8a8_case(dev, M, K, N) -> dict:
+    """int8 x int8 GEMM on the int8 rows of an fp32 x, fp32 out."""
+    import torch
+
+    from repro_torch.kernels.quant_matmul import (quantize_activations,
+                                                  w8a8_matmul, w8a8_matmul_ref)
+
+    x, w8, s = _qm_inputs(dev, M, K, N, seed=4)
+    x8, xs = quantize_activations(x)
+    got = w8a8_matmul(x8, w8, xs, s)
+    want = w8a8_matmul_ref(x8, w8, xs, s)
+    # the int32 sum is exact on both sides and the epilogue is the same
+    # fp32 multiplies in the same order
+    err = (got - want).abs().max().item()
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    out = {"M": M, "K": K, "N": N, "dtype": "int8->float32",
+           "max_abs_err": err, "max_rel_err": rel, "tol_rel": 1e-6,
+           "ok": rel <= 1e-6}
+    nbytes = M * K + K * N + 4 * M + 4 * N + 4 * M * N
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 2 * M * K * N, "int8")
+    out["kernel_ms"] = time_ms(lambda: w8a8_matmul(x8, w8, xs, s), dev)
+    out["plain_ms"] = time_ms(lambda: w8a8_matmul_ref(x8, w8, xs, s), dev)
+    try:      # torch._int_mm: cuBLAS's int8 GEMM, then the same epilogue
+        out["library_ms"] = time_ms(
+            lambda: torch._int_mm(x8, w8).float() * xs[:, None] * s, dev)
+        out["library_int_mm_only_ms"] = time_ms(lambda: torch._int_mm(x8, w8),
+                                                dev)
+    except (RuntimeError, AttributeError) as e:
+        out["library_ms"], out["library_error"] = None, repr(e)[:200]
+    return out
+
+
 def phase_kernels(args, dev) -> dict:
     import torch
 
@@ -268,10 +372,20 @@ def phase_kernels(args, dev) -> dict:
                                causal=True))
     pools = [pool_case(dev, B, S, D, dt, pool, ragged)
              for pool in ("cls", "mean") for dt in (f32, bf16)]
-    for c in attn + pools:
-        emit({"phase": "kernels", "kernel": "flash_attention" if "H" in c
-              else "pool_norm", **c})
-    bad = [c for c in attn + pools if not c["ok"]]
+    # the projections of 16 x 96 tokens (on the CPU: 2 x 24 at width 64)
+    M = B * S
+    kn = MAIN_KN if t else ((D, D), (D, 4 * D), (4 * D, D))
+    qm = [quant_matmul_case(dev, M, k, n) for k, n in kn]
+    qr = [quantize_rows_case(dev, M, k) for k in sorted({k for k, _ in kn})]
+    w8 = [w8a8_case(dev, M, k, n) for k, n in kn]
+    cases = ([("flash_attention", c) for c in attn]
+             + [("pool_norm", c) for c in pools]
+             + [("quant_matmul", c) for c in qm]
+             + [("quantize_rows", c) for c in qr]
+             + [("w8a8_matmul", c) for c in w8])
+    for name, c in cases:
+        emit({"phase": "kernels", "kernel": name, **c})
+    bad = [c for _, c in cases if not c["ok"]]
     require(not bad, f"{len(bad)} kernel case(s) disagree with the plain "
                      f"version")
     # the main path's shapes: fp32 serving, bge's CLS epilogue
@@ -279,7 +393,11 @@ def phase_kernels(args, dev) -> dict:
                      and c["dtype"] == "float32")
     main_pool = next(c for c in pools if c["pool"] == "cls"
                      and c["dtype"] == "float32")
-    return {"flash_attention": main_attn, "pool_norm": main_pool}
+    # w_in, the largest projection, and the 1024-wide rows five of the six
+    # projections quantize
+    return {"flash_attention": main_attn, "pool_norm": main_pool,
+            "quant_matmul": qm[1], "quantize_rows": qr[0],
+            "w8a8_matmul": w8[1]}
 
 
 def golden_tree():
@@ -318,7 +436,7 @@ def phase_golden(args, dev) -> dict:
 
     tree, payloads, want = golden_tree()
     out = {}
-    for dtype in ("fp32", "bf16"):
+    for dtype in POLICIES:
         be = ShardedEmbedderBackend(golden_config(),
                                     params_from_numpy(tree, dev),
                                     max_tokens=32, min_seq_bucket=8,
@@ -330,8 +448,10 @@ def phase_golden(args, dev) -> dict:
                       "dtype_out": str(got.dtype)}
     require(out["fp32"]["max_abs_err"] <= 1e-5,
             f"fp32 golden drift {out['fp32']['max_abs_err']} > 1e-5")
-    require(out["bf16"]["cosine_distance"] <= 1e-2,
-            f"bf16 golden cosine distance {out['bf16']['cosine_distance']}")
+    for dtype, bar in (("bf16", 1e-2), ("int8", 1e-2), ("int8_w8a8", 2e-2)):
+        require(out[dtype]["cosine_distance"] <= bar,
+                f"{dtype} golden cosine distance "
+                f"{out[dtype]['cosine_distance']} > {bar}")
     return out
 
 
@@ -399,20 +519,27 @@ def phase_serve(args, dev) -> dict:
 
     smoke = dev.type != "cuda"
     reset_launch_counts()                 # the main path starts here
-    runs = [serve_once(dev, "bge-large-zh-v1.5", "fp32", smoke),
-            serve_once(dev, "bge-large-zh-v1.5", "bf16", smoke),
-            serve_once(dev, "jina-v2", "fp32", smoke, n=16)]
+    runs = [serve_once(dev, "bge-large-zh-v1.5", dtype, smoke)
+            for dtype in POLICIES]
+    runs.append(serve_once(dev, "jina-v2", "fp32", smoke, n=16))
     counts = launch_counts()              # ... and ends here
-    fp32, bf16 = runs[0].pop("vectors"), runs[1].pop("vectors")
-    runs[2].pop("vectors")
-    cos = 1.0 - cosine_distance(fp32, bf16)
+    vecs = {r["dtype"]: r.pop("vectors") for r in runs[:len(POLICIES)]}
+    runs[-1].pop("vectors")
     for r in runs:
         emit({"phase": "serve", **r})
-    require(cos >= 0.99, f"bf16 vs fp32 cosine {cos} < 0.99")
+    # the same seeded weights under each policy: the reference's bars
+    # against the fp32 oracle
+    out = {}
+    for dtype, bar in (("bf16", 0.99), ("int8", 0.99), ("int8_w8a8", 0.98)):
+        cos = 1.0 - cosine_distance(vecs["fp32"], vecs[dtype])
+        out[f"{dtype}_vs_fp32_min_cosine"] = cos
+        require(cos >= bar, f"{dtype} vs fp32 cosine {cos} < {bar}")
+    out["params_bytes"] = {r["dtype"]: r["params_bytes"]
+                           for r in runs[:len(POLICIES)]}
     if dev.type == "cuda":
         require(all(n > 0 for n in counts.values()),
                 f"a kernel was not launched on the main path: {counts}")
-    return {"bf16_vs_fp32_min_cosine": cos, "launches": counts}
+    return {**out, "launches": counts}
 
 
 def phase_profile(args, dev) -> dict:
@@ -426,7 +553,7 @@ def phase_profile(args, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts
     from repro_torch.models import embedder
-    from repro_torch.models.quantize import serve_params
+    from repro_torch.models.quantize import serve_params, wants_act_quant
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -450,13 +577,14 @@ def phase_profile(args, dev) -> dict:
         [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
     out = {"B": B, "S": S, "real_tokens_per_row": real,
            "matmul_gflop_per_forward": matmul_flops / 1e9}
-    for dtype in ("fp32", "bf16"):
+    for dtype in POLICIES:
         params, cdt = serve_params(base, dtype)
+        act_quant = wants_act_quant(dtype)
 
         def fwd():
             with torch.inference_mode():
                 return embedder.embed(params, cfg, toks, mask,
-                                      compute_dtype=cdt)
+                                      compute_dtype=cdt, act_quant=act_quant)
 
         for _ in range(3):
             fwd()
@@ -498,6 +626,7 @@ def phase_profile(args, dev) -> dict:
                 {"name": n[:90], "ms_per_forward": d / 1e3 / reps,
                  "share_of_busy": d / total_us}
                 for n, d in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]}
+        del params
     return out
 
 
@@ -516,7 +645,10 @@ def card_line() -> str:
 def kernel_summary(main: dict, launches: dict) -> dict:
     rows = []
     for name, source, replaces in (("flash_attention", FA_SOURCE, FA_REPLACES),
-                                   ("pool_norm", PN_SOURCE, PN_REPLACES)):
+                                   ("pool_norm", PN_SOURCE, PN_REPLACES),
+                                   ("quant_matmul", QM_SOURCE, QM_REPLACES),
+                                   ("quantize_rows", QM_SOURCE, QR_REPLACES),
+                                   ("w8a8_matmul", QM_SOURCE, W8_REPLACES)):
         c = main[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches.get(name, 0),

@@ -135,10 +135,13 @@ class TorchEmbedderBackend(Backend):
 
     ``dtype`` (optional) selects a serving precision policy realised ONCE
     at load by ``repro_torch.models.quantize.serve_params``: ``"fp32"``
-    (fp32 weights + fp32 trunk -- the precision oracle) or ``"bf16"``
-    (bf16-resident weights, bf16 trunk).  None keeps the params as given
-    with the model's default compute dtype; an fp32 forward on the card
-    needs TF32 off, which ``serve_params("fp32")`` sets.
+    (fp32 weights + fp32 trunk -- the precision oracle), ``"bf16"``
+    (bf16-resident weights, bf16 trunk), ``"int8"`` (int8 projection
+    weights, fp32 trunk) or ``"int8_w8a8"`` (the same tree, and int8
+    activations at every projection: ``act_quant``).  None keeps the params
+    as given with the model's default compute dtype; an fp32 forward on the
+    card needs TF32 off, which ``serve_params`` sets for every fp32-compute
+    policy.
     """
 
     def __init__(self, cfg, params, max_tokens: int = 128,
@@ -160,11 +163,12 @@ class TorchEmbedderBackend(Backend):
         self.real_tokens = 0     # tokens the queries actually carried
         self.padded_tokens = 0   # tokens added by padding (wasted FLOPs)
 
+        from repro_torch.models.quantize import serve_params, wants_act_quant
         if dtype is None:
             tree, cdt = params, None   # model default (layers.COMPUTE_DTYPE)
         else:
-            from repro_torch.models.quantize import serve_params
             tree, cdt = serve_params(params, dtype)
+        self.act_quant = wants_act_quant(dtype)
         self.params = _tree_to(tree, self.device)
         self.compute_dtype = cdt
         self._torch = torch
@@ -181,14 +185,17 @@ class TorchEmbedderBackend(Backend):
                 self.traces += 1
         with self._torch.inference_mode():
             return self._embedder.embed(self.params, self.cfg, toks, mask,
-                                        compute_dtype=self.compute_dtype)
+                                        compute_dtype=self.compute_dtype,
+                                        act_quant=self.act_quant)
 
     def _to_device(self, arr: np.ndarray):
         return self._torch.from_numpy(arr).to(self.device)
 
     @property
     def params_nbytes(self) -> int:
-        """Resident serving-weight footprint (bf16 serving: half of fp32)."""
+        """Resident serving-weight footprint: bf16 about half of fp32, int8
+        about a third at bge's width (int8 projections, one fp32 scale per
+        output channel; the embedding table and norms stay fp32)."""
         return sum(t.numel() * t.element_size() for t in _leaves(self.params))
 
     def _tokenize(self, queries: Sequence[Query], seq_len: int, out=None):

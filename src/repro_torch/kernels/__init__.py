@@ -3,21 +3,27 @@
 # and a ref.py plain PyTorch version of the same function:
 #   flash_attention/ -- blockwise online-softmax attention (GQA, ragged kv_len)
 #   pool_norm/       -- fused masked-pool + L2-normalise embedder epilogue
+#   quant_matmul/    -- int8 projections: weight-only GEMM, per-row int8
+#                       activations and the int8 x int8 GEMM (W8A8)
 # build.py compiles the sources with nvcc on first use and loads them.
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pool_norm import pool_norm
+    from repro_torch.kernels.quant_matmul import (quant_matmul, quantize_rows,
+                                                  w8a8_matmul)
+
+    return {"flash_attention": flash_attention, "pool_norm": pool_norm,
+            "quant_matmul": quant_matmul, "quantize_rows": quantize_rows,
+            "w8a8_matmul": w8a8_matmul}
 
 
 def launch_counts() -> dict:
     """Launches of each kernel wrapper since the last ``reset_launch_counts``."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.pool_norm import pool_norm
-
-    return {"flash_attention": flash_attention.launches,
-            "pool_norm": pool_norm.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.pool_norm import pool_norm
-
-    flash_attention.launches = 0
-    pool_norm.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0

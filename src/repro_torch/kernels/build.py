@@ -44,6 +44,12 @@ SIGNATURES = {
                                _L, _L, _L, _L, _L, _L,      # v, o strides
                                _I, _I, _P],                 # causal window stream
     "windve_pool_norm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "windve_quant_matmul": [_P, _L, _P, _P, _P,             # x ldx w8 scale out
+                            _I, _I, _I, _I, _P],            # dtype M N K stream
+    "windve_quantize_rows": [_P, _L, _P, _P,                # x ldx x8 x_scale
+                             _I, _I, _I, _P],               # dtype M K stream
+    "windve_w8a8_matmul": [_P, _L, _P, _P, _P, _P,          # x8 ldx w8 xs ws out
+                           _I, _I, _I, _I, _P],             # dtype M N K stream
 }
 
 

@@ -12,8 +12,9 @@ the optimized rows::
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
         --queries 64 --slo 1.0 --opt embed_dtype=bf16,embed_async=1 --prewarm
 
-``embed_dtype`` is ``fp32`` (the precision oracle) or ``bf16``; the int8
-policies come with the int8 slice of the port.  With ``--policy
+``embed_dtype`` is ``fp32`` (the precision oracle), ``bf16``, ``int8``
+(int8 projection weights, fp32 activations) or ``int8_w8a8`` (int8 weights
+and per-row int8 activations at every projection).  With ``--policy
 length-aware`` the dispatch threshold is calibrated from one Eq. 12 fit PER
 seq-length bucket, so it tracks the bucketed service curve instead of a
 hand-picked constant.  ``--device cpu`` runs the same pipeline on the host
@@ -187,9 +188,12 @@ def build_engine(model: str = "bge-large-zh-v1.5", slo: float = 1.0,
     # rewrite (e.g. append a little-core CPU pool here)
     tiers = list(npu_tiers)
     if det.heter_enable and d_cpu > 0:
+        # an int8 tier is marked quantized: brownout degradation prefers it
+        # at equal backlog
         tiers.append(TierSpec(CPU, d_cpu, backend=cpu_be,
                               bucket_fn=length_bucket_fn(MIN_SEQ_BUCKET,
-                                                         MAX_TOKENS)))
+                                                         MAX_TOKENS),
+                              quantized=cpu_be.dtype.startswith("int8")))
     # --opt cache=N[,cache_bytes=M]: the zero-cost tier at the head of the
     # topology — exact-match hits bypass every device queue entirely
     flags = perf_flags.FLAGS
@@ -220,8 +224,7 @@ def build_engine(model: str = "bge-large-zh-v1.5", slo: float = 1.0,
               f"backoff={flags.retry_backoff_ms}ms "
               f"deadline={flags.deadline_ms or 'none'}ms")
     # --opt admission=on[,reject_cost=X,watermark=N] + brownout=on: the
-    # overload-control pair (no tier is quantized until the int8 slice, so
-    # brownout has no quantized tier to prefer yet)
+    # overload-control pair
     admission = None
     if flags.admission:
         admission = AdmissionController(
@@ -266,7 +269,7 @@ def main() -> None:
     ap.add_argument("--opt", default="",
                     help="perf flags, e.g. embed_dtype=bf16,embed_async=1"
                          ",cache=4096,cache_bytes=0 "
-                         "(embed_dtype: fp32|bf16; cache=N "
+                         "(embed_dtype: fp32|bf16|int8|int8_w8a8; cache=N "
                          "puts an N-entry exact-match embedding cache at "
                          "the head of the dispatch topology); fault "
                          "tolerance: deadline_ms=N,retries=N,"

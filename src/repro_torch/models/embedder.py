@@ -84,7 +84,9 @@ def unflatten(flat: Mapping[str, np.ndarray], prefix: str = "") -> Params:
 def params_from_numpy(tree: Mapping[str, Any], device="cuda") -> Params:
     """The reference's nested param dict of numpy arrays (``blocks/*``
     stacked on the layer dimension, as in ``tests/golden/golden_embed.npz``)
-    -> the same nesting of tensors on ``device``, values and dtypes kept."""
+    -> the same nesting of tensors on ``device``, values and dtypes kept.
+    An already quantized tree comes over as it is: int8 weights stay int8
+    and their ``_scale`` siblings stay fp32."""
     out: Params = {}
     for name, leaf in tree.items():
         if isinstance(leaf, Mapping):
@@ -103,7 +105,8 @@ def layer_params(blocks: Params, i: int) -> Params:
 
 def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
           mask: Optional[torch.Tensor] = None, *,
-          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+          compute_dtype: Optional[torch.dtype] = None,
+          act_quant: bool = False) -> torch.Tensor:
     """tokens: (B, S) ints; mask: (B, S) 1 = real token, left-aligned.
     Returns (B, d_model) float32 L2-normalised embeddings.
 
@@ -113,7 +116,10 @@ def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     (weights are cast to it at use); None keeps ``layers.COMPUTE_DTYPE``.
     The pooling epilogue accumulates in fp32 for any compute dtype.  An fp32
     forward on the card raises while TF32 matmuls are on
-    (``quantize.serve_params(params, "fp32")`` switches them off).
+    (``quantize.serve_params`` switches them off for every fp32-compute
+    policy, the int8 ones included).  ``act_quant`` turns on W8A8
+    projections on an int8-quantized tree (``layers.dense_apply``); it
+    changes nothing on a float tree.
     """
     B, S = tokens.shape
     device = tokens.device
@@ -132,9 +138,9 @@ def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         bp = layer_params(blocks, i)
         hin = L.apply_norm(bp["norm1"], cfg, h)
         h = h + L.attn_forward(bp["attn"], cfg, hin, positions, causal=False,
-                               kv_mask=mask)
+                               kv_mask=mask, act_quant=act_quant)
         hin = L.apply_norm(bp["norm2"], cfg, h)
-        h = h + L.apply_mlp(bp["ffn"], cfg, hin)
+        h = h + L.apply_mlp(bp["ffn"], cfg, hin, act_quant)
     h = L.apply_norm(params["final_norm"], cfg, h)
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=device)

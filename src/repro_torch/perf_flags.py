@@ -15,9 +15,11 @@ from dataclasses import dataclass
 @dataclass
 class PerfFlags:
     # embedding serving precision: "fp32" (fp32-resident weights, fp32
-    # trunk -- the precision oracle) or "bf16" (weights cast ONCE at load,
-    # all matmuls bf16).  "int8" / "int8_w8a8" are accepted names whose
-    # backends come with the int8 slice of the port.  The pool_norm
+    # trunk -- the precision oracle), "bf16" (weights cast ONCE at load,
+    # all matmuls bf16), "int8" (projection weights quantized ONCE at load
+    # to int8 with per-channel scales, fp32 activations) or "int8_w8a8"
+    # (the same weights, and per-row int8 activations at every
+    # projection, int8 x int8 with int32 accumulation).  The pool_norm
     # epilogue always accumulates fp32, so served vectors stay fp32 unit
     # vectors.
     embed_dtype: str = "fp32"

@@ -80,9 +80,12 @@ class TestLayers:
         np.testing.assert_allclose(got, want, atol=FP32_ATOL)
 
     def test_dense_apply_refuses_int8_trees(self):
-        p = {"w": torch.zeros(4, 4, dtype=torch.int8), "w_scale": torch.ones(4)}
-        with pytest.raises(NotImplementedError, match="int8"):
-            L.dense_apply(p, "w", torch.zeros(2, 4))
+        """A ``_scale`` sibling routes to the int8 kernels, which take int8
+        weights only: a float weight there raises on either route."""
+        p = {"w": torch.zeros(4, 4), "w_scale": torch.ones(4)}
+        for act_quant in (False, True):
+            with pytest.raises(TypeError, match="int8"):
+                L.dense_apply(p, "w", torch.zeros(2, 4), act_quant=act_quant)
 
     @pytest.mark.parametrize("norm", ["layernorm", "rmsnorm"])
     def test_apply_norm(self, norm):
@@ -265,8 +268,24 @@ class TestPolicies:
 
     @pytest.mark.parametrize("dtype", ["int8", "int8_w8a8"])
     def test_int8_policies_raise_until_their_slice(self, dtype):
-        with pytest.raises(NotImplementedError, match="int8 slice"):
-            serve_params({"w": torch.ones(2, 2)}, dtype)
+        """The int8 policies serve now: the projections of the tree come
+        back int8 with fp32 scales, fp32 compute, and TF32 off (``embed``
+        refuses an fp32 forward on the card with it on)."""
+        flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+        saved = [f.allow_tf32 for f in flags]
+        try:
+            for f in flags:
+                f.allow_tf32 = True
+            tree, cdt = serve_params({"blocks": {"wq": torch.ones(2, 4, 3)},
+                                      "embed": torch.ones(5, 4)}, dtype)
+            assert not any(f.allow_tf32 for f in flags)
+        finally:
+            for f, v in zip(flags, saved):
+                f.allow_tf32 = v
+        assert cdt == torch.float32
+        assert tree["blocks"]["wq"].dtype == torch.int8
+        assert tree["blocks"]["wq_scale"].shape == (2, 3)
+        assert tree["embed"].dtype == torch.float32
 
     def test_fp32_policy_switches_tf32_off(self):
         flags = (torch.backends.cuda.matmul, torch.backends.cudnn)

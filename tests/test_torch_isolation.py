@@ -27,6 +27,8 @@ def test_every_module_imports_without_jax_or_repro():
     mods = port_modules()
     assert "repro_torch.launch.serve" in mods
     assert "repro_torch.core.sharded_backend" in mods
+    for m in ("quant_matmul.ops", "quant_matmul.ref"):
+        assert f"repro_torch.kernels.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

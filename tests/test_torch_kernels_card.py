@@ -19,9 +19,21 @@ from repro_torch.kernels.flash_attention import (attention_ref,  # noqa: E402
                                                  flash_attention)
 from repro_torch.kernels.pool_norm import (pool_norm,  # noqa: E402
                                            pool_norm_ref)
+from repro_torch.kernels.quant_matmul import (quant_matmul,  # noqa: E402
+                                              quant_matmul_ref,
+                                              quant_matmul_w8a8,
+                                              quantize_activations,
+                                              quantize_rows, w8a8_matmul,
+                                              w8a8_matmul_ref)
+from repro_torch.kernels.quant_matmul.ops import MAX_W8A8_K  # noqa: E402
 
-pytestmark = pytest.mark.skipif(not torch.cuda.is_available(),
-                                reason="needs a CUDA device")
+
+@pytest.fixture(autouse=True)
+def card():
+    """Decided per test, not at import: every worker collects the same
+    tests whether or not it sees a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
 
 # fp32: the kernel sums in another order than the plain version.  bf16: both
 # round P and the output to bf16, so they differ by about one output ulp.
@@ -112,3 +124,193 @@ def test_fp32_embed_refuses_tf32():
             embed(params, cfg, toks, compute_dtype=cdt)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ------------------------------------------------------------------ int8 --
+# (M, K, N): the JAX package's kernel sweep, then bge-large-zh-v1.5's
+# projections at 16 x 96 tokens (q/k/v/o and w_out: K = N = 1024 or
+# K = 4096; w_in: N = 4096)
+QM_CASES = [(128, 128, 128), (200, 96, 260), (7, 48, 130), (256, 320, 64),
+            (1, 16, 24), (1536, 1024, 1024), (1536, 1024, 4096),
+            (1536, 4096, 1024)]
+
+
+def _qm_inputs(M, K, N, seed=7):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K), np.float32)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    s = np.abs(rng.standard_normal(N, np.float32)) * 0.01 + 1e-4
+    return x, w8.cuda(), torch.from_numpy(s.astype(np.float32)).cuda()
+
+
+def _qm_id(c):
+    return "M{}K{}N{}".format(*c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", QM_CASES, ids=_qm_id)
+def test_quant_matmul_kernel_matches_plain(case, dtype):
+    x, w8, s = _qm_inputs(*case)
+    x = _on_card(x, dtype)
+    before = quant_matmul.launches
+    got = quant_matmul(x, w8, s)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    want = quant_matmul_ref(x, w8, s)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    if dtype == "float32":
+        # fp32 FMAs in another order than cuBLAS's: 1e-5 of the output's
+        # largest magnitude
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+    else:       # both round one fp32 sum to bf16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def _edge_rows(K):
+    """Random rows at many scales, a zero row, a subnormal row, a row whose
+    amax / 127 is subnormal, and exact half-way ties (scale 1)."""
+    tiny = np.finfo(np.float32).tiny
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((12, K), np.float32)
+    x *= np.geomspace(1e-3, 1e3, 12, dtype=np.float32)[:, None]
+    x[1] = 0.0
+    x[2] *= np.float32(1e-40)
+    x[3] = (rng.uniform(-1, 1, K) * tiny * 60).astype(np.float32)
+    x[3, 0] = np.float32(tiny * 100)
+    x[4] = 0.0
+    x[4, :8] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, 126.5, -126.5]
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(12, 70), (12, 1024), (1536, 1024),
+                                   (1536, 4096)], ids=str)
+def test_quantize_rows_kernel_is_bitwise_the_plain_version(shape, dtype):
+    M, K = shape
+    x = np.random.default_rng(4).standard_normal((M, K), np.float32)
+    x[:12] = _edge_rows(K)
+    x = _on_card(x, dtype)
+    before = quantize_rows.launches
+    x8, s = quantize_rows(x)
+    torch.cuda.synchronize()
+    assert quantize_rows.launches == before + 1
+    w8, ws = quantize_activations(x)
+    assert x8.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.equal(x8, w8)
+    assert torch.equal(s.view(torch.int32), ws.view(torch.int32))
+
+
+def test_weights_quantize_on_the_card_as_on_the_cpu():
+    """serve_params quantizes on the device the weights live on: the card's
+    int8 weights and scales are the CPU's (and so the JAX package's)."""
+    from repro_torch.models.quantize import quantize_dense
+
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, 1024, 4096), np.float32) / 32)
+    w[0, :, 3] = 0.0
+    q, s = quantize_dense(w.cuda())
+    qc, sc = quantize_dense(w)
+    assert torch.equal(q.cpu(), qc)
+    assert torch.equal(s.cpu().view(torch.int32), sc.view(torch.int32))
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", QM_CASES, ids=_qm_id)
+def test_w8a8_matmul_kernel_matches_plain(case, out):
+    """The int32 product is exact on both sides, and the epilogue is the
+    same fp32 multiplies in the same order: equal within fp32 rounding."""
+    x, w8, s = _qm_inputs(*case)
+    x8, xs = quantize_activations(_on_card(x, "float32"))
+    dt = getattr(torch, out)
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(x8, w8, xs, s, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert w8a8_matmul.launches == before + 1
+    want = w8a8_matmul_ref(x8, w8, xs, s, out_dtype=dt)
+    assert got.dtype == dt
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def test_w8a8_router_is_quantize_rows_then_the_gemm():
+    x, w8, s = _qm_inputs(1536, 1024, 1024)
+    x = _on_card(x, "float32")
+    q0, g0 = quantize_rows.launches, w8a8_matmul.launches
+    got = quant_matmul_w8a8(x, w8, s)
+    torch.cuda.synchronize()
+    assert (quantize_rows.launches, w8a8_matmul.launches) == (q0 + 1, g0 + 1)
+    x8, xs = quantize_activations(x)
+    want = w8a8_matmul_ref(x8, w8, xs, s)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def test_int8_kernels_read_a_row_strided_view():
+    """A view whose rows are strided (as a column slice is) is read with
+    its row stride, never as if it were contiguous."""
+    x, w8, s = _qm_inputs(200, 96, 260)
+    wide = _on_card(np.pad(x, ((0, 0), (0, 37))), "float32")
+    view = wide[:, :96]
+    assert not view.is_contiguous()
+    torch.testing.assert_close(quant_matmul(view, w8, s),
+                               quant_matmul_ref(view.contiguous(), w8, s),
+                               rtol=1e-5, atol=1e-5)
+    x8, xs = quantize_rows(view)
+    w8_, ws_ = quantize_activations(view.contiguous())
+    assert torch.equal(x8, w8_) and torch.equal(xs, ws_)
+    wide8 = torch.zeros((200, 128), dtype=torch.int8, device="cuda")
+    wide8[:, :96] = x8
+    torch.testing.assert_close(w8a8_matmul(wide8[:, :96], w8, xs, s),
+                               w8a8_matmul_ref(x8, w8, xs, s),
+                               rtol=1e-6, atol=0)
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take():
+    x, w8, s = _qm_inputs(8, 32, 16)
+    x = _on_card(x, "float32")
+    with pytest.raises(TypeError, match="int8"):
+        quant_matmul(x, w8.float(), s)
+    with pytest.raises(TypeError, match="int8"):
+        quant_matmul_w8a8(x, w8.float(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(x[:, :16], w8.t().contiguous().t()[:16], s)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        quant_matmul(x.half(), w8, s)
+    k = MAX_W8A8_K + 4
+    with pytest.raises(ValueError, match="overflow"):
+        w8a8_matmul(torch.zeros((1, k), dtype=torch.int8, device="cuda"),
+                    torch.zeros((k, 1), dtype=torch.int8, device="cuda"),
+                    torch.ones(1, device="cuda"), torch.ones(1, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int8_w8a8"])
+def test_int8_embed_runs_with_tf32_switched_off(dtype):
+    """The int8 policies compute in fp32: realising them switches TF32 off,
+    so embed's fp32 guard lets them through, and every projection goes
+    through the int8 kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.embedder import embed, init_embedder
+    from repro_torch.models.quantize import serve_params, wants_act_quant
+
+    cfg = get_config("bge-large-zh-v1.5").smoke()
+    base = init_embedder(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    toks = torch.ones((2, 8), dtype=torch.int32, device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        params, cdt = serve_params(base, dtype)
+        before = launch_counts()
+        out = embed(params, cfg, toks, compute_dtype=cdt,
+                    act_quant=wants_act_quant(dtype))
+        torch.cuda.synchronize()
+        after = launch_counts()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert out.shape == (2, cfg.d_model) and torch.isfinite(out).all()
+    per_layer = 6 * cfg.num_layers
+    if dtype == "int8":
+        assert after["quant_matmul"] - before["quant_matmul"] == per_layer
+    else:
+        assert after["w8a8_matmul"] - before["w8a8_matmul"] == per_layer
+        assert after["quantize_rows"] - before["quantize_rows"] == per_layer

@@ -163,8 +163,9 @@ def test_sharded_dtype_defaults_to_the_serving_flag(bge_smoke):
         perf_flags.reset_flags()
     assert be.dtype == "bf16" and be.serve_dtype == torch.bfloat16
     assert be.params["embed"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="int8 slice"):
-        ShardedEmbedderBackend(cfg, params, 32, device="cpu", dtype="int8")
+    be = ShardedEmbedderBackend(cfg, params, 32, device="cpu", dtype="int8")
+    assert be.serve_dtype == torch.float32 and not be.act_quant
+    assert be.params["blocks"]["ffn"]["w_in"].dtype == torch.int8
 
 
 def test_cuda_without_a_card_raises_instead_of_falling_back():
