@@ -20,10 +20,23 @@ non-zero:
   serve    build_engine + WindVE.submit at full width: bge-large-zh-v1.5
            (24 x 1024) in fp32, bf16, int8 and int8_w8a8, and jina-v2 in
            fp32 (mean pooling).  Launch counts are zeroed just before this
-           phase and read just after it; every kernel must have run.
+           phase and read just after it; every embedding kernel must have
+           run.
+  generate launch/serve_llm's engine for hymba-1.5b at full width (32
+           layers, d_model 1600, random weights): 32 prompts of 64 tokens
+           in two waves of 16, 16 greedy tokens each.  Launch counts are
+           zeroed just before the engine is built and read just after the
+           last answer: rmsnorm, flash_attention, ssm_scan and flash_decode
+           must have run.  Then, off the counted path: teacher-forced
+           logits of the kernel path against the plain versions on the
+           card (cosine >= 0.99 at every step), and decode-step logits
+           against a fresh prefill of the longer prompt (cosine >= 0.99),
+           with 64-token prompts and with a 1100-token prompt that wraps
+           the 1024-slot ring.
   profile  (only when named) one bge forward at B=16 x S=96 under each
-           policy: host clock, enqueue time, device busy time from a
-           torch.profiler trace, kernels per forward and the top kernels.
+           policy, and one hymba prefill (B=16 x S=64) and decode step:
+           host clock, enqueue time, device busy time from a
+           torch.profiler trace, kernels per step and the top kernels.
 
 Times are CUDA-event timings: one warm-up call, then the median over
 repetitions of a run of back-to-back launches queued behind a device-side
@@ -35,6 +48,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -46,7 +60,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("build", "kernels", "golden", "serve")
+PHASES = ("build", "kernels", "golden", "serve", "generate")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # fp32 outside the tensor cores
@@ -61,6 +75,12 @@ QM_REPLACES = "src/repro/kernels/quant_matmul/quant_matmul.py:111"
 W8_REPLACES = "src/repro/kernels/quant_matmul/quant_matmul.py:182"
 # quantize_rows replaces the jnp prologue w8a8_matmul_pallas is fed by
 QR_REPLACES = "src/repro/kernels/quant_matmul/quant_matmul.py:47"
+RN_SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
+FD_SOURCE = "src/repro_torch/csrc/flash_decode.cu"
+SS_SOURCE = "src/repro_torch/csrc/ssm_scan.cu"
+RN_REPLACES = "src/repro/kernels/rmsnorm/rmsnorm.py:35"
+FD_REPLACES = "src/repro/kernels/flash_decode/flash_decode.py:88"
+SS_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:74"
 # the main path's attention and epilogue shapes: bge-large-zh-v1.5 at
 # batch 16 and the 96-token window
 MAIN_B, MAIN_S, MAIN_H, MAIN_HD, MAIN_D = 16, 96, 16, 64, 1024
@@ -68,6 +88,15 @@ MAIN_B, MAIN_S, MAIN_H, MAIN_HD, MAIN_D = 16, 96, 16, 64, 1024
 MAIN_KN = ((1024, 1024), (1024, 4096), (4096, 1024))
 MAIN_F = 4096
 POLICIES = ("fp32", "bf16", "int8", "int8_w8a8")
+# what the embedding path launches (bge and jina use layernorm)
+EMBED_KERNELS = ("flash_attention", "pool_norm", "quant_matmul",
+                 "quantize_rows", "w8a8_matmul")
+# the LM path: hymba-1.5b, batches of 16 prompts of 64 tokens, 16 new
+# tokens, so the decode cache holds 80 slots; its shapes below
+LM_ARCH, LM_B, LM_PROMPT, LM_NEW = "hymba-1.5b", 16, 64, 16
+LM_D, LM_KV, LM_G, LM_HD, LM_DI, LM_N = 1600, 5, 5, 64, 3200, 16
+LONG_PROMPT = 1100                   # > the 1024-token window: the ring wraps
+COSINE_BAR = 0.99
 
 
 def emit(obj) -> None:
@@ -351,6 +380,142 @@ def w8a8_case(dev, M, K, N) -> dict:
     return out
 
 
+def _rel_err(got, want) -> tuple:
+    """(max abs error, largest magnitude of ``want``)."""
+    return ((got.float() - want.float()).abs().max().item(),
+            want.float().abs().max().item())
+
+
+def rmsnorm_case(dev, R, D, dt) -> dict:
+    """RMSNorm of R rows of D, scale fp32, against its plain version."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((R, D), np.float32) * 3).to(dev, dt)
+    scale = torch.from_numpy(1 + 0.1 * rng.standard_normal(D)
+                             .astype(np.float32)).to(dev)
+    got = rmsnorm(x, scale, 1e-5)
+    err, mag = _rel_err(got, rmsnorm_ref(x, scale, 1e-5))
+    tol = (1e-4 if dt == torch.float32 else 2e-2) * mag
+    out = {"R": R, "D": D, "dtype": dtype_name(dt), "max_abs_err": err,
+           "tol": tol, "ok": err <= tol and got.dtype == dt}
+    # reads x and the scale once, writes the output once; a square-add and
+    # two multiplies an element
+    esize = x.element_size()
+    out["bound_ms"], out["bound_by"] = bound(2 * R * D * esize + 4 * D,
+                                             3 * R * D, "float32")
+    out["kernel_ms"] = time_ms(lambda: rmsnorm(x, scale, 1e-5), dev)
+    out["plain_ms"] = time_ms(lambda: rmsnorm_ref(x, scale, 1e-5), dev)
+    w = scale.to(dt)
+    try:
+        out["library_ms"] = time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5), dev)
+    except (AttributeError, RuntimeError) as e:
+        out["library_ms"], out["library_error"] = None, repr(e)[:200]
+    return out
+
+
+def ssm_case(dev, B, S, DI, N, dt) -> dict:
+    """The selective scan from a zero state; y and h are fp32 on both
+    sides, so the limit is fp32's for either x dtype."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    rng = np.random.default_rng(6)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    x = t(rng.standard_normal((B, S, DI)), dt)
+    dtv = t(np.log1p(np.exp(rng.standard_normal((B, S, DI)))))  # softplus
+    Bm, Cm = (t(rng.standard_normal((B, S, N))) for _ in range(2))
+    A = t(-np.broadcast_to(np.arange(1, N + 1), (DI, N)))
+    y, h = ssm_scan(x, dtv, Bm, Cm, A)
+    y_ref, h_ref = ssm_scan_ref(x, dtv, Bm, Cm, A)
+    ey, my = _rel_err(y, y_ref)
+    eh, mh = _rel_err(h, h_ref)
+    out = {"B": B, "S": S, "DI": DI, "N": N, "x_dtype": dtype_name(dt),
+           "max_abs_err": max(ey, eh), "y_err": ey, "y_tol": 1e-4 * my,
+           "h_err": eh, "h_tol": 1e-4 * mh,
+           "ok": ey <= 1e-4 * my and eh <= 1e-4 * mh}
+    # x, dt and y stream once; B and C once; A; h written once.  Seven
+    # flops (one an exp) a (b, t, d, n) and one a (b, t, d)
+    nbytes = (B * S * DI * (x.element_size() + 8) + 8 * B * S * N
+              + 4 * DI * N + 4 * B * DI * N)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, B * S * DI * (7 * N + 1),
+                                             "float32")
+    out["kernel_ms"] = time_ms(lambda: ssm_scan(x, dtv, Bm, Cm, A), dev)
+    out["plain_ms"] = time_ms(lambda: ssm_scan_ref(x, dtv, Bm, Cm, A), dev)
+    out["library_ms"] = None       # no one PyTorch call runs the scan
+    return out
+
+
+def ring_kpos(dev, Sc, pos):
+    """Slot positions after positions 0..pos were written into a ring of
+    Sc slots (slot = position % Sc); unwritten slots are -1."""
+    import torch
+
+    kpos = torch.full((Sc,), -1, dtype=torch.int32)
+    p = torch.arange(max(0, pos - Sc + 1), pos + 1, dtype=torch.int32)
+    kpos[p.long() % Sc] = p
+    return kpos.to(dev)
+
+
+def flash_decode_case(dev, B, KV, G, hd, Sc, pos, window, qdt, cdt) -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import (decode_attention_ref,
+                                                  flash_decode)
+    from repro_torch.kernels.flash_decode.ref import slot_mask
+
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((B, KV, G, hd), np.float32)
+                         ).to(dev, qdt)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Sc, KV, hd), np.float32)
+                             ).to(dev, cdt) for _ in range(2))
+    kpos = ring_kpos(dev, Sc, pos)
+    kw = dict(window=window)
+    got = flash_decode(q, k, v, kpos, pos, **kw)
+    want = decode_attention_ref(q, k, v, kpos, pos, **kw)
+    err, mag = _rel_err(got, want)
+    tol = (1e-4 if qdt == torch.float32 else 2e-2) * mag
+    valid = slot_mask(kpos, pos, window)
+    n_valid = int(valid.sum().item())
+    zeros_ok = n_valid > 0 or bool((got == 0).all().item())
+    out = {"B": B, "KV": KV, "G": G, "hd": hd, "Sc": Sc, "pos": pos,
+           "window": window, "valid_slots": n_valid,
+           "dtype": f"q {dtype_name(qdt)}, cache {dtype_name(cdt)}",
+           "max_abs_err": err, "tol": tol, "no_valid_slot_zeros": zeros_ok,
+           "ok": err <= tol and zeros_ok and got.dtype == qdt}
+    # q and the output once, the k and v rows of valid slots once, kpos;
+    # QK and PV over the valid slots
+    qbytes = 2 * B * KV * G * hd * q.element_size()
+    nbytes = qbytes + 2 * B * KV * n_valid * hd * k.element_size() + 4 * Sc
+    out["bound_ms"], out["bound_by"] = bound(
+        nbytes, 4 * B * KV * G * hd * n_valid, "float32")
+    out["kernel_ms"] = time_ms(lambda: flash_decode(q, k, v, kpos, pos, **kw),
+                               dev)
+    out["plain_ms"] = time_ms(
+        lambda: decode_attention_ref(q, k, v, kpos, pos, **kw), dev)
+    # yardstick: SDPA over the slots with the KV heads expanded to G query
+    # heads each and a boolean slot mask (layouts made outside the timing)
+    q4 = q.reshape(B, KV * G, 1, hd)
+    ke, ve = (t.transpose(1, 2).repeat_interleave(G, 1).to(qdt).contiguous()
+              for t in (k, v))
+    mask = valid[None, None, None]
+    out["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q4, ke, ve, attn_mask=mask),
+        dev)
+    return out
+
+
 def phase_kernels(args, dev) -> dict:
     import torch
 
@@ -370,6 +535,15 @@ def phase_kernels(args, dev) -> dict:
                                causal=True, window=48))
     attn.append(attention_case(dev, 2, 4, 4, 70, 128, f32, [70, 0],
                                causal=True))
+    # hymba-1.5b's prefill: causal, window 1024, 25 heads on 5 KV heads;
+    # batches of 64-token prompts, and a prompt longer than the window
+    lm_attn = (((LM_B, LM_PROMPT), (2, LONG_PROMPT), 25, LM_KV, LM_HD, 1024)
+               if t else ((2, 24), (1, 40), 4, 2, 16, 16))
+    *shapes, H_lm, KV_lm, hd_lm, win = lm_attn
+    for b, s in shapes:
+        for dt in (f32, bf16):
+            attn.append(attention_case(dev, b, H_lm, KV_lm, s, hd_lm, dt,
+                                       [s] * b, causal=True, window=win))
     pools = [pool_case(dev, B, S, D, dt, pool, ragged)
              for pool in ("cls", "mean") for dt in (f32, bf16)]
     # the projections of 16 x 96 tokens (on the CPU: 2 x 24 at width 64)
@@ -378,11 +552,35 @@ def phase_kernels(args, dev) -> dict:
     qm = [quant_matmul_case(dev, M, k, n) for k, n in kn]
     qr = [quantize_rows_case(dev, M, k) for k in sorted({k for k, _ in kn})]
     w8 = [w8a8_case(dev, M, k, n) for k, n in kn]
+    # the LM path (on the CPU: smoke widths)
+    D, DI, KV, G, hd = ((LM_D, LM_DI, LM_KV, LM_G, LM_HD) if t
+                        else (128, 256, 2, 2, 32))
+    Bl, Sl, Sc = (LM_B, LM_PROMPT, LM_PROMPT + LM_NEW) if t else (2, 24, 28)
+    rms = [rmsnorm_case(dev, r, d, dt) for r, d in
+           ((Bl * Sl, D), (Bl, D), (7, 77)) for dt in (f32, bf16)]
+    ssm = [ssm_case(dev, b, s, di, LM_N, dt) for b, s, di in
+           ((Bl, Sl, DI), (2, 50, 200)) for dt in (bf16, f32)]
+    ring = 1024 if t else 16
+    fd = [flash_decode_case(dev, Bl, KV, G, hd, Sc, Sc - 1, ring, bf16, f32),
+          flash_decode_case(dev, Bl, KV, G, hd, Sc, Sc - 1, ring, f32, f32),
+          flash_decode_case(dev, Bl, KV, G, hd, Sc, Sc - 1, ring, bf16, bf16),
+          # a full ring that has wrapped: every slot valid, then a
+          # narrower window
+          flash_decode_case(dev, 2, KV, G, hd, ring, LONG_PROMPT, ring,
+                            bf16, f32),
+          flash_decode_case(dev, 2, KV, G, hd, ring, LONG_PROMPT, ring * 3 // 4,
+                            f32, f32),
+          # empty slots, and no valid slot at all
+          flash_decode_case(dev, 3, KV, G, hd, Sc, 40, 0, f32, f32),
+          flash_decode_case(dev, 2, KV, G, hd, 16, -1, 0, bf16, f32)]
     cases = ([("flash_attention", c) for c in attn]
              + [("pool_norm", c) for c in pools]
              + [("quant_matmul", c) for c in qm]
              + [("quantize_rows", c) for c in qr]
-             + [("w8a8_matmul", c) for c in w8])
+             + [("w8a8_matmul", c) for c in w8]
+             + [("rmsnorm", c) for c in rms]
+             + [("ssm_scan", c) for c in ssm]
+             + [("flash_decode", c) for c in fd])
     for name, c in cases:
         emit({"phase": "kernels", "kernel": name, **c})
     bad = [c for _, c in cases if not c["ok"]]
@@ -395,9 +593,12 @@ def phase_kernels(args, dev) -> dict:
                      and c["dtype"] == "float32")
     # w_in, the largest projection, and the 1024-wide rows five of the six
     # projections quantize
+    # the LM path computes in bf16 with an fp32 cache: the prefill's norm,
+    # its scan and the last decode step's read
     return {"flash_attention": main_attn, "pool_norm": main_pool,
             "quant_matmul": qm[1], "quantize_rows": qr[0],
-            "w8a8_matmul": w8[1]}
+            "w8a8_matmul": w8[1], "rmsnorm": rms[1], "ssm_scan": ssm[0],
+            "flash_decode": fd[0]}
 
 
 def golden_tree():
@@ -537,32 +738,269 @@ def phase_serve(args, dev) -> dict:
     out["params_bytes"] = {r["dtype"]: r["params_bytes"]
                            for r in runs[:len(POLICIES)]}
     if dev.type == "cuda":
-        require(all(n > 0 for n in counts.values()),
+        require(all(counts[name] > 0 for name in EMBED_KERNELS),
                 f"a kernel was not launched on the main path: {counts}")
     return {**out, "launches": counts}
 
 
+# the LM's kernel routers and their plain versions, by the name
+# models.layers calls them under
+PLAIN_VERSIONS = {
+    "rmsnorm": ("repro_torch.kernels.rmsnorm", "rmsnorm_ref"),
+    "flash_decode": ("repro_torch.kernels.flash_decode",
+                     "decode_attention_ref"),
+    "ssm_scan": ("repro_torch.kernels.ssm_scan", "ssm_scan_ref"),
+    "flash_attention": ("repro_torch.kernels.flash_attention",
+                        "attention_ref"),
+}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside: models.layers calls every kernel's plain version, also on the
+    card (the plain versions take the kernels' arguments)."""
+    import importlib
+
+    from repro_torch.models import layers as L
+
+    saved = {name: getattr(L, name) for name in PLAIN_VERSIONS}
+    try:
+        for name, (mod, ref) in PLAIN_VERSIONS.items():
+            setattr(L, name, getattr(importlib.import_module(mod), ref))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(L, name, fn)
+
+
+def min_cosine(a, b) -> float:
+    """Smallest cosine between matching rows (last dim) of a and b."""
+    import torch.nn.functional as F
+
+    return F.cosine_similarity(a.float(), b.float(), dim=-1).min().item()
+
+
+def decode_vs_prefill(be, toks, forced) -> list:
+    """Cosine of each decode step's logits (teacher-forced on ``forced``,
+    (steps, B)) against a fresh prefill of the prompt plus the tokens fed
+    so far."""
+    import torch
+
+    from repro_torch.models import lm
+
+    _, steps = be.generate(toks, forced=forced)
+    toks = torch.as_tensor(toks).to(be.device)
+    fed = torch.as_tensor(forced).to(be.device)
+    out = []
+    with torch.inference_mode():
+        for t in range(fed.shape[0]):
+            longer = torch.cat([toks, fed[:t + 1].T], dim=1)
+            want, _ = lm.prefill(be.params, be.cfg, longer,
+                                 cache_dtype=torch.float32,
+                                 compute_dtype=be.compute_dtype)
+            out.append(min_cosine(steps[t + 1], want))
+    return out
+
+
+def phase_generate(args, dev) -> dict:
+    """hymba-1.5b token generation through launch/serve_llm's engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.llm_backend import LMGenerateBackend
+    from repro_torch.core.routing import CPU, NPU, Query
+    from repro_torch.data.workload import make_queries
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve_llm import build_engine
+    from repro_torch.models import lm
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n, prompt, new = 32, LM_PROMPT, LM_NEW
+    reset_launch_counts()                 # the LM's main path starts here
+    t0 = time.monotonic()
+    engine, cfg, _ = build_engine(LM_ARCH, smoke=not cuda, device=dev,
+                                  new_tokens=new)
+    build_s = time.monotonic() - t0
+    try:
+        be = engine.backends[CPU]
+        # the modeled tier answers with zero vectors by design: route this
+        # run's prompts to the real tier so every answer is checkable
+        engine.qm.set_depth(NPU, 0)
+        queries = make_queries(n, cfg.vocab_size, prompt, seed=11)
+        outs = []
+        t1 = time.monotonic()
+        for wave in (queries[:n // 2], queries[n // 2:]):
+            futs = [engine.submit(payload=q, length=prompt) for q in wave]
+            require(all(f is not None for f in futs), "a prompt was refused")
+            outs += [f.result(timeout=600) for f in futs]
+        serve_s = time.monotonic() - t1
+        counts = launch_counts()          # ... and ends here
+        s = engine.stats
+        out = {"model": cfg.name, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "params_bytes": be.params_nbytes,
+               "build_engine_s": build_s, "serve_s": serve_s,
+               "served": len(outs), "per_device": dict(s.per_device),
+               "batch_p50_ms": s.batch_p(50, CPU) * 1e3,
+               "batch_p95_ms": s.batch_p(95, CPU) * 1e3,
+               "batches": len(s.tier_batch_latencies.get(CPU, [])),
+               "launches": counts}
+    finally:
+        engine.shutdown()
+    gen = np.stack(outs)
+    out["shape"] = list(gen.shape)
+    require(gen.shape == (n, new) and gen.dtype.kind in "iu"
+            and ((gen >= 0) & (gen < cfg.vocab_size)).all(),
+            f"continuations of shape {gen.shape}, not ({n}, {new}) ids in "
+            f"[0, {cfg.vocab_size})")
+    if cuda:
+        for name in ("rmsnorm", "flash_attention", "ssm_scan", "flash_decode"):
+            require(counts[name] > 0, f"{name} was not launched on the LM "
+                                      f"path: {counts}")
+
+    # off the counted path: one batch of the same prompts, teacher-forced
+    # on the served tokens, through the kernels and the plain versions
+    toks = be.prompt_tokens([Query(qid=i, payload=q, length=prompt)
+                             for i, q in enumerate(queries[:LM_B])])
+    forced = gen[:LM_B, :-1].T
+    with torch.inference_mode():
+        _, kern = be.generate(toks, forced=forced)
+        with plain_kernels():
+            _, plain = be.generate(toks, forced=forced)
+    out["kernel_vs_plain_min_cosine"] = [min_cosine(a, b)
+                                         for a, b in zip(kern, plain)]
+    # decode against a fresh prefill, with 64-token prompts and with B = 2
+    # and a prompt longer than the window (the ring wraps in prefill).
+    # Held in fp32 compute (TF32 off), where the two agree to rounding; in
+    # bf16 the two orders of rounding drift apart through 32 layers of
+    # random weights, so the bf16 figure is reported, not held.
+    long_toks = np.stack(make_queries(2, cfg.vocab_size, LONG_PROMPT,
+                                      seed=12))
+    long_forced = np.stack(make_queries(2, cfg.vocab_size, new - 1,
+                                        seed=13)).T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fp32 = LMGenerateBackend(cfg, be.params, max_prompt=prompt,
+                             max_new_tokens=new, device=dev,
+                             compute_dtype=torch.float32)
+    out["long_prompt"] = LONG_PROMPT
+    for tag, backend in (("", fp32), ("bf16_", be)):
+        out[f"{tag}decode_vs_prefill_min_cosine"] = decode_vs_prefill(
+            backend, toks, forced)
+        out[f"{tag}long_decode_vs_prefill_min_cosine"] = decode_vs_prefill(
+            backend, long_toks, long_forced)
+
+    # host clock of one prefill and of a decode step at the batch shape
+    with torch.inference_mode():
+        x = torch.as_tensor(toks).to(dev)
+        times = []
+        for _ in range(3):
+            sync()
+            t2 = time.perf_counter()
+            _, cache = lm.prefill(be.params, cfg, x, max_len=prompt + new,
+                                  cache_dtype=torch.float32)
+            sync()
+            times.append(time.perf_counter() - t2)
+        out["prefill_ms"] = statistics.median(times) * 1e3
+        tok = x[:, -1]
+        t2 = time.perf_counter()
+        for _ in range(new - 1):
+            logits, cache = lm.decode_step(be.params, cfg, tok, cache)
+            tok = logits.argmax(-1)
+        sync()
+        out["decode_ms_per_step"] = (time.perf_counter() - t2) * 1e3 / (new - 1)
+    emit({"phase": "generate", **out})
+    held = ("kernel_vs_plain_min_cosine", "decode_vs_prefill_min_cosine",
+            "long_decode_vs_prefill_min_cosine")
+    for key in held:
+        require(min(out[key]) >= COSINE_BAR,
+                f"{key}: {min(out[key])} < {COSINE_BAR}")
+    summary = {key: min(out[key]) for key in held}
+    summary["bf16_decode_vs_prefill_min_cosine"] = min(
+        out["bf16_decode_vs_prefill_min_cosine"]
+        + out["bf16_long_decode_vs_prefill_min_cosine"])
+    del be, fp32, engine
+    if cuda:
+        torch.cuda.empty_cache()
+    return {**summary, "launches": counts}
+
+
+def profile_steps(fn, sync, acts, trace_path, reps: int = 5) -> dict:
+    """Where the time of one call of ``fn`` goes: host clock (synchronised),
+    host enqueue time, device busy time summed from the kernels of a
+    torch.profiler trace, launches of the port's kernels and the kernels
+    by device time."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+
+    for _ in range(3):
+        fn()
+    sync()
+    enqueue, wall = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        sync()
+        wall.append(time.perf_counter() - t0)
+        enqueue.append(t1 - t0)
+    before = launch_counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    after = launch_counts()
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    total_us = sum(by_name.values())
+    wall_ms = statistics.median(wall) * 1e3
+    busy_ms = total_us / 1e3 / reps if kernels else None
+    return {
+        "wall_ms": wall_ms, "enqueue_ms": statistics.median(enqueue) * 1e3,
+        "device_busy_ms": busy_ms,
+        "idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+        "kernels_per_step": len(kernels) / reps,
+        "launches_per_step": {k: (after[k] - before[k]) / reps for k in after
+                              if after[k] != before[k]},
+        "top_kernels": [
+            {"name": n[:90], "ms_per_step": d / 1e3 / reps,
+             "share_of_busy": d / total_us}
+            for n, d in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]}
+
+
 def phase_profile(args, dev) -> dict:
-    """Where one forward's time goes at the main path's largest batch
-    (bge-large-zh-v1.5, B=16 x S=96, 75 real tokens a row): host clock per
-    forward, the host's enqueue time, device busy time summed from the
-    kernels of a torch.profiler trace, and the kernels by device time."""
+    """Where one step's time goes at the main paths' largest batches:
+    one bge-large-zh-v1.5 forward (B=16 x S=96, 75 real tokens a row)
+    under each policy, and one hymba-1.5b prefill (B=16 x S=64) and
+    decode step (B=16 against the 64-token prompt's cache)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts
-    from repro_torch.models import embedder
+    from repro_torch.models import embedder, lm
     from repro_torch.models.quantize import serve_params, wants_act_quant
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    trace_dir = os.path.join(ROOT, "build", "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU] + (
+        [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
+
+    def trace(name):
+        return os.path.join(trace_dir, f"profile_{name}.json")
+
     cfg = get_config("bge-large-zh-v1.5")
     if not cuda:
         cfg = cfg.smoke()
     base = embedder.init_embedder(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    B, S, real, reps = MAIN_B, MAIN_S, 75, 5
+    B, S, real = MAIN_B, MAIN_S, 75
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S))
                             .astype(np.int32)).to(dev)
@@ -571,10 +1009,6 @@ def phase_profile(args, dev) -> dict:
     D, F = cfg.d_model, cfg.d_ff
     matmul_flops = 2 * B * S * cfg.num_layers * (
         2 * D * H * hd + 2 * D * KV * hd + 2 * D * F)
-    trace_dir = os.path.join(ROOT, "build", "profile")
-    os.makedirs(trace_dir, exist_ok=True)
-    acts = [torch.profiler.ProfilerActivity.CPU] + (
-        [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
     out = {"B": B, "S": S, "real_tokens_per_row": real,
            "matmul_gflop_per_forward": matmul_flops / 1e9}
     for dtype in POLICIES:
@@ -586,47 +1020,38 @@ def phase_profile(args, dev) -> dict:
                 return embedder.embed(params, cfg, toks, mask,
                                       compute_dtype=cdt, act_quant=act_quant)
 
-        for _ in range(3):
-            fwd()
-        sync()
-        enqueue, wall = [], []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            fwd()
-            t1 = time.perf_counter()
-            sync()
-            wall.append(time.perf_counter() - t0)
-            enqueue.append(t1 - t0)
-        before = launch_counts()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fwd()
-            sync()
-        after = launch_counts()
-        path = os.path.join(trace_dir, f"profile_{dtype}.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-        kernels = [e for e in events if e.get("cat") == "kernel"]
-        by_name: dict = {}
-        for e in kernels:
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-        total_us = sum(by_name.values())
-        wall_ms = statistics.median(wall) * 1e3
-        busy_ms = total_us / 1e3 / reps if kernels else None
-        out[dtype] = {
-            "wall_ms": wall_ms, "enqueue_ms": statistics.median(enqueue) * 1e3,
-            "device_busy_ms": busy_ms,
-            "idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
-            "kernels_per_forward": len(kernels) / reps,
-            "launches_per_forward": {k: (after[k] - before[k]) / reps
-                                     for k in after},
-            "matmul_tflops_at_wall": matmul_flops / wall_ms / 1e9,
-            "top_kernels": [
-                {"name": n[:90], "ms_per_forward": d / 1e3 / reps,
-                 "share_of_busy": d / total_us}
-                for n, d in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]}
+        out[dtype] = profile_steps(fwd, sync, acts, trace(dtype))
+        out[dtype]["matmul_tflops_at_wall"] = (matmul_flops
+                                               / out[dtype]["wall_ms"] / 1e9)
         del params
+    del base
+
+    cfg = get_config(LM_ARCH)
+    if not cuda:
+        cfg = cfg.smoke()
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_B, LM_PROMPT))
+                         .astype(np.int32)).to(dev)
+
+    def prefill():
+        with torch.inference_mode():
+            return lm.prefill(params, cfg, x, max_len=LM_PROMPT + LM_NEW,
+                              cache_dtype=torch.float32)
+
+    _, cache = prefill()
+    tok = x[:, -1]
+
+    def decode():
+        # the same position every call: the step's work stays the same
+        with torch.inference_mode():
+            return lm.decode_step(params, cfg, tok, cache)
+
+    out[LM_ARCH] = {"B": LM_B, "S": LM_PROMPT, "cache_slots": LM_PROMPT + LM_NEW,
+                    "prefill": profile_steps(prefill, sync, acts,
+                                             trace("hymba_prefill")),
+                    "decode_step": profile_steps(decode, sync, acts,
+                                                 trace("hymba_decode"))}
     return out
 
 
@@ -642,16 +1067,28 @@ def card_line() -> str:
         return f"nvidia-smi unavailable: {e!r}"
 
 
-def kernel_summary(main: dict, launches: dict) -> dict:
+KERNELS = (("flash_attention", FA_SOURCE, FA_REPLACES),
+           ("pool_norm", PN_SOURCE, PN_REPLACES),
+           ("quant_matmul", QM_SOURCE, QM_REPLACES),
+           ("quantize_rows", QM_SOURCE, QR_REPLACES),
+           ("w8a8_matmul", QM_SOURCE, W8_REPLACES),
+           ("rmsnorm", RN_SOURCE, RN_REPLACES),
+           ("ssm_scan", SS_SOURCE, SS_REPLACES),
+           ("flash_decode", FD_SOURCE, FD_REPLACES))
+
+
+def kernel_summary(main: dict, by_path: dict) -> dict:
+    """One row a kernel: its case at the main path's shape, and its
+    launches on the main paths (``by_path``: path -> launch counts)."""
     rows = []
-    for name, source, replaces in (("flash_attention", FA_SOURCE, FA_REPLACES),
-                                   ("pool_norm", PN_SOURCE, PN_REPLACES),
-                                   ("quant_matmul", QM_SOURCE, QM_REPLACES),
-                                   ("quantize_rows", QM_SOURCE, QR_REPLACES),
-                                   ("w8a8_matmul", QM_SOURCE, W8_REPLACES)):
+    for name, source, replaces in KERNELS:
         c = main[name]
+        per_path = {path: counts.get(name, 0)
+                    for path, counts in by_path.items()}
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches.get(name, 0),
+                     "replaces": replaces,
+                     "launches": sum(per_path.values()),
+                     "launches_by_path": per_path,
                      "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],
@@ -712,8 +1149,9 @@ def main() -> int:
         return 1
     print(card_line(), flush=True)
     if "kernels" in results:
-        launches = results.get("serve", {}).get("launches", {})
-        emit(kernel_summary(results["kernels"], launches))
+        by_path = {path: results[path]["launches"]
+                   for path in ("serve", "generate") if path in results}
+        emit(kernel_summary(results["kernels"], by_path))
     if failed or not set(PHASES) <= set(phases):
         print(f"[chip_smoke] failed phases {failed}; phases run {phases}",
               file=sys.stderr)

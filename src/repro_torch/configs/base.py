@@ -1,9 +1,10 @@
 """Model configuration dataclass and the registry of the port's models.
 
 A copy of the reference package's ``configs/base.py``, cut to what the
-embedding-serving path reads: ``ModelConfig`` with its ``smoke()`` reduced
-variant and ``get_config``.  The registry lists only the two embedders the
-port serves so far.
+embedding-serving and LM-generation paths read: ``ModelConfig`` with its
+derived sizes, its ``smoke()`` reduced variant and ``get_config``.  The
+registry lists the models the port serves so far: the two embedders and
+hymba-1.5b.
 """
 from __future__ import annotations
 
@@ -60,8 +61,28 @@ class ModelConfig:
         return 0
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or max(16, self.d_model // 16)
+
+    @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def has_attention(self) -> bool:
+        return self.block in ("attn", "hybrid")
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.block in ("mamba", "hybrid")
+
+    @property
+    def has_decoder(self) -> bool:
+        return self.arch_type != "encoder"
 
     def smoke(self) -> "ModelConfig":
         """Reduced same-family variant for CPU smoke tests."""
@@ -100,6 +121,7 @@ class ModelConfig:
 ARCH_MODULES = {
     "bge-large-zh-v1.5": "bge_large_zh",
     "jina-v2": "jina_v2",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 

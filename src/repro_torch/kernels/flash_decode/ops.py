@@ -1,0 +1,83 @@
+"""Router for flash-decode attention: the CUDA kernel for CUDA tensors, the
+plain PyTorch version for CPU tensors.  No fallback."""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (q, cache) pairs the kernel takes: fp32 compute with an fp32 cache, bf16
+# compute with an fp32 (the LM backend's) or a bf16 cache
+PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+         (torch.bfloat16, torch.bfloat16))
+_count_lock = threading.Lock()
+
+
+def _check(q, k, v, kpos, pos) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: no route for device {q.device}")
+    for name, t in (("k", k), ("v", v), ("kpos", kpos)):
+        if t.device != q.device:
+            raise ValueError(f"flash_decode: {name} on {t.device}, q on "
+                             f"{q.device}")
+    if v.dtype != k.dtype or (q.dtype, k.dtype) not in PAIRS:
+        raise TypeError(f"flash_decode: q {q.dtype} with k {k.dtype} and v "
+                        f"{v.dtype} not supported: (q, cache) in {PAIRS}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_decode: want q (B,KV,G,hd) and k, v "
+                         f"(B,Sc,KV,hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, KV, _, hd = q.shape
+    if k.shape[0] != B or k.shape[2] != KV or k.shape[3] != hd:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
+                         f"k {tuple(k.shape)}")
+    if kpos.shape != (k.shape[1],) or kpos.dtype != torch.int32:
+        raise ValueError(f"flash_decode: want kpos ({k.shape[1]},) int32, "
+                         f"got {tuple(kpos.shape)} {kpos.dtype}")
+    if not isinstance(pos, int):
+        raise TypeError(f"flash_decode: pos must be a Python int (a tensor "
+                        f"would cost a device sync), got {type(pos)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_decode: {name}'s head dim must be "
+                             f"contiguous, strides {t.stride()}")
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kpos: torch.Tensor, pos: int, *,
+                 window: int = 0) -> torch.Tensor:
+    """q: (B, KV, G, hd); k, v: (B, Sc, KV, hd); kpos: (Sc,) int32 absolute
+    position per slot (-1 = empty); pos: the query's position, a Python
+    int.  Returns (B, KV, G, hd) in q's dtype, contiguous.  q, k and v may
+    be strided views with a contiguous head dim; (q, cache) dtypes are one
+    of ``PAIRS``.  A shape the kernel cannot launch (too much shared memory
+    for G x hd, too many batch rows) raises with the CUDA error."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, kpos, pos, window=window)
+    _check(q, k, v, kpos, pos)
+    B, KV, G, hd = q.shape
+    Sc = k.shape[1]
+    kpos = kpos.contiguous()
+    out = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        err = lib.windve_flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
+            out.data_ptr(), _DTYPES[q.dtype], _DTYPES[k.dtype], B, KV, G,
+            Sc, hd, *q.stride()[:3], k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), pos, int(window),
+            build.stream_handle(q.device))
+    build.check(lib, err, "flash_decode")
+    with _count_lock:                 # engine workers launch from threads
+        flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0
+
+
+__all__ = ["flash_decode", "decode_attention_ref", "PAIRS"]

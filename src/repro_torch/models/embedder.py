@@ -8,7 +8,6 @@ carries a reference tree over, so both packages compute the same thing.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -21,49 +20,23 @@ from repro_torch.models import layers as L
 Params = Dict[str, Any]
 
 
-def _normal(g: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    return (torch.randn(shape, generator=g, device=g.device,
-                        dtype=torch.float32) * scale).to(dtype)
-
-
-def _norm_params(cfg: ModelConfig, lead: tuple, dtype, device) -> Params:
-    p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=dtype, device=device)}
-    if cfg.norm == "layernorm":
-        p["bias"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype,
-                                device=device)
-    return p
-
-
 def init_embedder(cfg: ModelConfig, generator: torch.Generator,
                   device="cuda", dtype=torch.float32) -> Params:
     """Random embedder params, drawn from ``generator`` on its own device and
     moved to ``device``.  Dense weights are N(0, 1/fan_in), the embedding
     table N(0, 0.02^2), norms start at scale 1 and bias 0 -- the reference's
     initialisers, with torch's random numbers."""
-    Ly, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-
-    def dense(shape):
-        w = _normal(generator, (Ly,) + shape, 1.0 / math.sqrt(shape[0]), dtype)
-        return w.to(device)
-
-    if cfg.act == "silu":
-        ffn = {"w_gate": dense((D, F)), "w_up": dense((D, F)),
-               "w_down": dense((F, D))}
-    else:
-        ffn = {"w_in": dense((D, F)), "w_out": dense((F, D))}
-    attn = {"wq": dense((D, H * hd)), "wk": dense((D, KV * hd)),
-            "wv": dense((D, KV * hd)), "wo": dense((H * hd, D))}
-    if cfg.qkv_bias:
-        for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
-            attn[name] = torch.zeros((Ly, n), dtype=dtype, device=device)
+    lead = (cfg.num_layers,)
+    ffn = L.init_mlp(generator, cfg, lead, dtype, device)
+    attn = L.init_attention(generator, cfg, lead, dtype, device)
     return {
-        "embed": _normal(generator, (cfg.vocab_size, D), 0.02, dtype).to(device),
-        "blocks": {"norm1": _norm_params(cfg, (Ly,), dtype, device),
+        "embed": L.dense_init(generator, (cfg.vocab_size, cfg.d_model), (),
+                              dtype, device, scale=0.02),
+        "blocks": {"norm1": L.init_norm(cfg, lead, dtype, device),
                    "attn": attn,
-                   "norm2": _norm_params(cfg, (Ly,), dtype, device),
+                   "norm2": L.init_norm(cfg, lead, dtype, device),
                    "ffn": ffn},
-        "final_norm": _norm_params(cfg, (), dtype, device),
+        "final_norm": L.init_norm(cfg, (), dtype, device),
     }
 
 

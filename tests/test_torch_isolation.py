@@ -29,6 +29,12 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.core.sharded_backend" in mods
     for m in ("quant_matmul.ops", "quant_matmul.ref"):
         assert f"repro_torch.kernels.{m}" in mods
+    for m in ("models.lm", "models.api", "core.llm_backend",
+              "launch.serve_llm", "configs.hymba_1_5b"):
+        assert f"repro_torch.{m}" in mods
+    for k in ("rmsnorm", "flash_decode", "ssm_scan"):
+        for part in ("ops", "ref"):
+            assert f"repro_torch.kernels.{k}.{part}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

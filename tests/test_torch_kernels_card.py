@@ -17,6 +17,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import (attention_ref,  # noqa: E402
                                                  flash_attention)
+from repro_torch.kernels.flash_decode import (  # noqa: E402
+    decode_attention_ref, flash_decode)
 from repro_torch.kernels.pool_norm import (pool_norm,  # noqa: E402
                                            pool_norm_ref)
 from repro_torch.kernels.quant_matmul import (quant_matmul,  # noqa: E402
@@ -26,6 +28,8 @@ from repro_torch.kernels.quant_matmul import (quant_matmul,  # noqa: E402
                                               quantize_rows, w8a8_matmul,
                                               w8a8_matmul_ref)
 from repro_torch.kernels.quant_matmul.ops import MAX_W8A8_K  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -49,6 +53,10 @@ ATTN_CASES = [
     (2, 4, 4, 70, 128, True, 0, [70, 0]),              # hd 128
     # bge-large-zh-v1.5's attention on the serving path
     (16, 16, 16, 96, 64, False, 0, [96, 75, 0, 48] * 4),
+    # hymba-1.5b's prefill: causal, window 1024, G = 5; the 64-token
+    # window and a prompt longer than the window
+    (16, 25, 5, 64, 64, True, 1024, [64] * 16),
+    (2, 25, 5, 1100, 64, True, 1024, [1100, 1100]),
 ]
 
 # (B, S, D, lens)
@@ -314,3 +322,215 @@ def test_int8_embed_runs_with_tf32_switched_off(dtype):
     else:
         assert after["w8a8_matmul"] - before["w8a8_matmul"] == per_layer
         assert after["quantize_rows"] - before["quantize_rows"] == per_layer
+
+
+# ------------------------------------------------------------ LM kernels --
+# Outputs are held relative to their largest magnitude: fp32 within 1e-4,
+# bf16 within 2e-2 (about two bf16 ulps), the limits chip_smoke.py holds.
+
+def _close(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(want.float().abs().max().item(), 1e-30), err
+
+
+# (R, D): hymba-1.5b's prefill (16 x 64 tokens) and decode rows, an odd D
+RMS_CASES = [(1024, 1600), (16, 1600), (7, 77)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RMS_CASES, ids=lambda c: "R{}D{}".format(*c))
+def test_rmsnorm_kernel_matches_plain(case, dtype):
+    R, D = case
+    rng = np.random.default_rng(3)
+    x = _on_card(rng.standard_normal((R, D), np.float32) * 3, dtype)
+    scale = _on_card(1 + 0.1 * rng.standard_normal(D).astype(np.float32),
+                     "float32")
+    before = rmsnorm.launches
+    got = rmsnorm(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    _close(got, rmsnorm_ref(x, scale, 1e-5), dtype)
+
+
+def test_rmsnorm_kernel_reads_strided_rows():
+    rng = np.random.default_rng(4)
+    wide = _on_card(rng.standard_normal((2, 9, 200), np.float32), "bfloat16")
+    scale = _on_card(rng.standard_normal(160).astype(np.float32), "float32")
+    x = wide[..., :160]
+    _close(rmsnorm(x, scale), rmsnorm_ref(x, scale), "bfloat16")
+
+
+def _ssm_inputs(B, S, DI, N, dtype, seed=5):
+    rng = np.random.default_rng(seed)
+    x = _on_card(rng.standard_normal((B, S, DI), np.float32), dtype)
+    dt = _on_card(np.log1p(np.exp(rng.standard_normal((B, S, DI))))
+                  .astype(np.float32), "float32")           # softplus > 0
+    Bm, Cm = (_on_card(rng.standard_normal((B, S, N), np.float32), "float32")
+              for _ in range(2))
+    A = _on_card(-np.broadcast_to(np.arange(1, N + 1, dtype=np.float32),
+                                  (DI, N)).copy(), "float32")
+    return x, dt, Bm, Cm, A
+
+
+# (B, S, DI, N): hymba-1.5b's prefill, then S and DI off the tile sizes
+SSM_CASES = [(16, 64, 3200, 16), (2, 50, 200, 16), (3, 33, 130, 16),
+             (1, 1, 7, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSM_CASES,
+                         ids=lambda c: "B{}S{}DI{}N{}".format(*c))
+def test_ssm_scan_kernel_matches_plain(case, dtype):
+    x, dt, Bm, Cm, A = _ssm_inputs(*case, dtype)
+    before = ssm_scan.launches
+    y, h = ssm_scan(x, dt, Bm, Cm, A)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    y_ref, h_ref = ssm_scan_ref(x, dt, Bm, Cm, A)
+    assert y.dtype == h.dtype == torch.float32
+    # both read the same x and compute in fp32
+    _close(y, y_ref, "float32")
+    _close(h, h_ref, "float32")
+
+
+def test_ssm_scan_reads_column_slices_of_one_projection():
+    """The model's B and C are column slices of x_proj's output."""
+    x, dt, _, _, A = _ssm_inputs(2, 40, 96, 16, "float32")
+    dbc = torch.randn((2, 40, 8 + 32), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0))
+    Bm, Cm = dbc[..., 8:24], dbc[..., 24:]
+    y, h = ssm_scan(x, dt, Bm, Cm, A)
+    y_ref, h_ref = ssm_scan_ref(x, dt, Bm, Cm, A)
+    _close(y, y_ref, "float32")
+    _close(h, h_ref, "float32")
+
+
+def _ring_kpos(Sc, pos):
+    """Slot positions after writing positions 0..pos into a ring of Sc
+    slots (slot = position % Sc); unwritten slots are -1."""
+    kpos = np.full(Sc, -1, np.int32)
+    for p in range(max(0, pos - Sc + 1), pos + 1):
+        kpos[p % Sc] = p
+    return torch.from_numpy(kpos).cuda()
+
+
+# (B, KV, G, hd, Sc, pos, window): hymba-1.5b's last decode step of a
+# 64 + 16 token generation; a full ring of 1024 slots that has wrapped,
+# under its window and under a narrower one; empty slots; no valid slot
+FD_CASES = [(16, 5, 5, 64, 80, 79, 1024), (2, 5, 5, 64, 1024, 1100, 1024),
+            (2, 5, 5, 64, 1024, 1100, 1000), (3, 2, 4, 32, 80, 40, 0),
+            (2, 1, 3, 128, 70, 69, 16), (2, 2, 2, 64, 16, -1, 0)]
+FD_DTYPES = [("float32", "float32"), ("bfloat16", "float32"),
+             ("bfloat16", "bfloat16")]
+
+
+@pytest.mark.parametrize("dtypes", FD_DTYPES, ids=lambda d: "q-{}-cache-{}"
+                         .format(*d))
+@pytest.mark.parametrize("case", FD_CASES,
+                         ids=lambda c: "B{}KV{}G{}hd{}Sc{}pos{}w{}".format(*c))
+def test_flash_decode_kernel_matches_plain(case, dtypes):
+    B, KV, G, hd, Sc, pos, window = case
+    qdt, cdt = dtypes
+    rng = np.random.default_rng(6)
+    q = _on_card(rng.standard_normal((B, KV, G, hd), np.float32), qdt)
+    k, v = (_on_card(rng.standard_normal((B, Sc, KV, hd), np.float32), cdt)
+            for _ in range(2))
+    kpos = _ring_kpos(Sc, pos)
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, kpos, pos, window=window)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = decode_attention_ref(q, k, v, kpos, pos, window=window)
+    if pos < 0:                                   # no valid slot: zeros
+        assert (got == 0).all() and (want == 0).all()
+    else:
+        _close(got, want, qdt)
+
+
+def test_flash_decode_reads_a_layer_of_the_stacked_cache_and_a_q_view():
+    """The LM passes one layer of an (L, B, Sc, KV, hd) cache and q as a
+    view of the (B, 1, H*hd) projection."""
+    rng = np.random.default_rng(8)
+    cache = _on_card(rng.standard_normal((3, 2, 40, 2, 32), np.float32),
+                     "float32")
+    proj = _on_card(rng.standard_normal((2, 1, 3 * 2 * 32 + 8), np.float32),
+                    "float32")
+    q = proj[..., :192].reshape(2, 2, 3, 32)
+    kpos = _ring_kpos(40, 39)
+    got = flash_decode(q, cache[1], cache[2], kpos, 39)
+    _close(got, decode_attention_ref(q.contiguous(), cache[1], cache[2],
+                                     kpos, 39), "float32")
+
+
+def test_lm_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    x, dt, Bm, Cm, A = _ssm_inputs(1, 4, 8, 16, "float32")
+    with pytest.raises(ValueError, match="state size"):
+        ssm_scan(x, dt, Bm[..., :5], Cm[..., :5], A[:, :5])
+    with pytest.raises(TypeError, match="float32"):
+        ssm_scan(x, dt.bfloat16(), Bm, Cm, A)
+    q = torch.zeros((1, 1, 1, 16), device="cuda")
+    k = torch.zeros((1, 4, 1, 16), device="cuda")
+    kpos = _ring_kpos(4, 3)
+    with pytest.raises(TypeError, match="Python int"):
+        flash_decode(q, k, k, kpos, torch.tensor(3, device="cuda"))
+    with pytest.raises(ValueError, match="int32"):
+        flash_decode(q, k, k, kpos.long(), 3)
+    with pytest.raises(TypeError, match="not supported"):
+        flash_decode(q, k.bfloat16(), k.bfloat16(), kpos, 3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rmsnorm(q.half(), torch.ones(16, device="cuda"))
+    with pytest.raises(TypeError, match="scale must be float32"):
+        rmsnorm(q, torch.ones(16, device="cuda").bfloat16())
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_hymba_smoke_kernel_path_matches_plain_path(compute, monkeypatch):
+    """prefill + decode steps at hymba's smoke size: every kernel of the
+    path launched the expected number of times, logits held against the
+    same model with the plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    cfg = get_config("hymba-1.5b").smoke()
+    params = lm.init_lm(cfg, torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    cdt = getattr(torch, compute)
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24))
+                            .astype(np.int32)).cuda()
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2))
+                              .astype(np.int32)).cuda()
+
+    def run():
+        logits, cache = lm.prefill(params, cfg, toks, max_len=28,
+                                   cache_dtype=torch.float32,
+                                   compute_dtype=cdt)
+        out = [logits]
+        for t in range(3):
+            logits, cache = lm.decode_step(params, cfg, forced[t], cache,
+                                           compute_dtype=cdt)
+            out.append(logits)
+        return torch.stack(out).float()
+
+    before = launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    n = {k: after[k] - before[k] for k in after}
+    Ly = cfg.num_layers
+    assert n["rmsnorm"] == 4 * (2 * Ly + 1)
+    assert n["flash_attention"] == Ly and n["ssm_scan"] == Ly
+    assert n["flash_decode"] == 3 * Ly
+    for name, ref in (("rmsnorm", rmsnorm_ref),
+                      ("flash_decode", decode_attention_ref),
+                      ("ssm_scan", ssm_scan_ref),
+                      ("flash_attention", attention_ref)):
+        monkeypatch.setattr(L, name, ref)
+    want = run()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= (1e-4 if compute == "float32" else 5e-2) * scale, err
