@@ -13,6 +13,9 @@ non-zero:
   kernels  each kernel against its plain PyTorch version on the same inputs
            on the card, with its time, the plain version's, one PyTorch
            library call's (a yardstick the port never calls) and the bound.
+           The summary's flash_attention and pool_norm rows also carry a
+           `cases` map: bf16 attention at bge's and hymba's prefill shapes,
+           and mean pooling in fp32 and bf16.
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
            vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
@@ -524,28 +527,41 @@ def phase_kernels(args, dev) -> dict:
     B, H, S, hd, D = ((MAIN_B, MAIN_H, MAIN_S, MAIN_HD, MAIN_D) if t
                       else (4, 2, 24, 16, 64))
     ragged = [S, 75 if S > 75 else S - 1, 0, S // 2] * (B // 4)
-    attn = []
+    attn, attn_cases = [], {}
     for s in ((16, S) if t else (S,)):
         lens = [min(n, s) if n else 0 for n in ragged]
         for dt in (f32, bf16):
             attn.append(attention_case(dev, B, H, H, s, hd, dt, lens))
-    attn.append(attention_case(dev, 4, 4, 2, 40, 32, f32, [40, 17, 0, 1]))
-    attn.append(attention_case(dev, 4, 4, 2, 40, 32, bf16, [40, 17, 0, 1]))
-    attn.append(attention_case(dev, 2, 4, 2, 130, 64, f32, [130, 77],
-                               causal=True, window=48))
-    attn.append(attention_case(dev, 2, 4, 4, 70, 128, f32, [70, 0],
-                               causal=True))
+    attn_cases["bge_bf16"] = attn[-1]
+    # ragged tiles: an S that is not a multiple of the 64-key tile, a
+    # window that ends mid-tile, hd 32 and 128, GQA G = 2 and 4
+    for dt in (f32, bf16):
+        attn.append(attention_case(dev, 4, 4, 2, 40, 32, dt, [40, 17, 0, 1]))
+        attn.append(attention_case(dev, 2, 4, 2, 130, 64, dt, [130, 77],
+                                   causal=True, window=48))
+        attn.append(attention_case(dev, 2, 4, 4, 70, 128, dt, [70, 0],
+                                   causal=True))
+        attn.append(attention_case(dev, 2, 8, 2, 200, 32, dt, [200, 150]))
     # hymba-1.5b's prefill: causal, window 1024, 25 heads on 5 KV heads;
     # batches of 64-token prompts, and a prompt longer than the window
     lm_attn = (((LM_B, LM_PROMPT), (2, LONG_PROMPT), 25, LM_KV, LM_HD, 1024)
                if t else ((2, 24), (1, 40), 4, 2, 16, 16))
     *shapes, H_lm, KV_lm, hd_lm, win = lm_attn
-    for b, s in shapes:
+    for (b, s), tag in zip(shapes, ("hymba_S64_bf16", "hymba_S1100_bf16")):
         for dt in (f32, bf16):
             attn.append(attention_case(dev, b, H_lm, KV_lm, s, hd_lm, dt,
                                        [s] * b, causal=True, window=win))
+        attn_cases[tag] = attn[-1]
     pools = [pool_case(dev, B, S, D, dt, pool, ragged)
              for pool in ("cls", "mean") for dt in (f32, bf16)]
+    pool_cases = {f"mean_{c['dtype']}": c for c in pools
+                  if c["pool"] == "mean"}
+    # mean mode at a D that is not a multiple of 128 (1000) or of the
+    # 16-byte vector (77), at S = 1, with fully masked rows
+    for dt in (f32, bf16):
+        pools.append(pool_case(dev, 4, 7, 1000, dt, "mean", [7, 0, 1, 5]))
+        pools.append(pool_case(dev, 3, 20, 77, dt, "mean", [20, 0, 9]))
+        pools.append(pool_case(dev, 3, 1, 1024, dt, "mean", [1, 0, 1]))
     # the projections of 16 x 96 tokens (on the CPU: 2 x 24 at width 64)
     M = B * S
     kn = MAIN_KN if t else ((D, D), (D, 4 * D), (4 * D, D))
@@ -598,7 +614,9 @@ def phase_kernels(args, dev) -> dict:
     return {"flash_attention": main_attn, "pool_norm": main_pool,
             "quant_matmul": qm[1], "quantize_rows": qr[0],
             "w8a8_matmul": w8[1], "rmsnorm": rms[1], "ssm_scan": ssm[0],
-            "flash_decode": fd[0]}
+            "flash_decode": fd[0],
+            # the redesigned paths, each at the main paths' shapes
+            "cases": {"flash_attention": attn_cases, "pool_norm": pool_cases}}
 
 
 def golden_tree():
@@ -1081,18 +1099,22 @@ def kernel_summary(main: dict, by_path: dict) -> dict:
     """One row a kernel: its case at the main path's shape, and its
     launches on the main paths (``by_path``: path -> launch counts)."""
     rows = []
+    keys = ("kernel_ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")
     for name, source, replaces in KERNELS:
         c = main[name]
         per_path = {path: counts.get(name, 0)
                     for path, counts in by_path.items()}
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces,
-                     "launches": sum(per_path.values()),
-                     "launches_by_path": per_path,
-                     "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
-                     "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                     "bound_by": c["bound_by"],
-                     "library_ms": c.get("library_ms")})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": sum(per_path.values()),
+               "launches_by_path": per_path,
+               "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
+               "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+               "bound_by": c["bound_by"], "library_ms": c.get("library_ms")}
+        cases = main.get("cases", {}).get(name)
+        if cases:
+            row["cases"] = {tag: {k: case.get(k) for k in keys}
+                            for tag, case in cases.items()}
+        rows.append(row)
     return {"kernels": rows}
 
 

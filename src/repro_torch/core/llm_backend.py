@@ -45,15 +45,18 @@ class LMGenerateBackend(Backend):
                                  for t in _leaves(params))
 
     def prompt_tokens(self, queries: Sequence[Query]) -> np.ndarray:
-        """(B, max_prompt) int32: each prompt right-aligned, pad id 1."""
+        """(B, max_prompt) int32: each prompt right-aligned, pad id 1.
+        An empty prompt raises ``ValueError``, as in the reference backend:
+        there is no token to continue from."""
         toks = np.full((len(queries), self.max_prompt), PAD_ID, np.int32)
         for i, q in enumerate(queries):
             ids = q.payload
             if ids is None:
                 ids = (np.arange(q.length) % (self.cfg.vocab_size - 2)) + 2
             n = min(len(ids), self.max_prompt)
-            if n:
-                toks[i, -n:] = np.asarray(ids[:n], np.int32)
+            if n == 0:
+                raise ValueError(f"query {q.qid}: empty prompt")
+            toks[i, -n:] = np.asarray(ids[:n], np.int32)
         return toks
 
     def generate(self, toks, forced: Optional[np.ndarray] = None):

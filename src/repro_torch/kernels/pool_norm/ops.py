@@ -10,7 +10,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.pool_norm.ref import pool_norm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_D = 12288          # the pooled row lives in 48 KB of shared memory
+MAX_D = 12288          # CLS keeps the pooled row in 48 KB of shared memory
 _count_lock = threading.Lock()
 
 

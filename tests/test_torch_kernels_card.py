@@ -51,6 +51,12 @@ ATTN_CASES = [
     (2, 2, 2, 48, 32, True, 0, [48, 20]),              # causal + ragged
     (2, 4, 2, 48, 16, True, 12, [48, 30]),             # sliding window
     (2, 4, 4, 70, 128, True, 0, [70, 0]),              # hd 128
+    # several 64-key tiles: an S that is not a multiple of the tile, a
+    # window that ends mid-tile, hd 32 and 128 (hd 128's bf16 tiles take
+    # shared memory above 48 KB)
+    (2, 4, 2, 130, 64, True, 48, [130, 77]),
+    (2, 8, 2, 200, 32, False, 0, [200, 150]),
+    (2, 4, 2, 200, 128, True, 100, [200, 131]),
     # bge-large-zh-v1.5's attention on the serving path
     (16, 16, 16, 96, 64, False, 0, [96, 75, 0, 48] * 4),
     # hymba-1.5b's prefill: causal, window 1024, G = 5; the 64-token
@@ -61,7 +67,11 @@ ATTN_CASES = [
 
 # (B, S, D, lens)
 POOL_CASES = [(4, 7, 32, [7, 0, 1, 5]),
-              (16, 96, 1024, [96, 75, 0, 48] * 4)]   # bge's epilogue
+              (16, 96, 1024, [96, 75, 0, 48] * 4),   # bge's epilogue
+              # D not a multiple of 128, nor of the 16-byte vector; S = 1
+              (4, 7, 1000, [7, 0, 1, 5]),
+              (3, 20, 77, [20, 0, 9]),
+              (3, 1, 1024, [1, 0, 1])]
 
 
 def _ids(cases, fmt):
@@ -113,6 +123,44 @@ def test_pool_norm_kernel_matches_plain(case, pool, dtype):
     assert (got[torch.tensor(lens, device="cuda") == 0] == 0).all()
     torch.testing.assert_close(got, pool_norm_ref(h, m, pool), rtol=0,
                                atol=1e-5)
+
+
+def _unaligned(x, dtype):
+    """x on the card as a view whose base is one element past a 16-byte
+    boundary (and, where x has more than one dim, whose rows are one
+    element longer than x's), so the kernels take their element copies."""
+    *lead, n = x.shape
+    pad = torch.zeros((*lead, n + 1), dtype=getattr(torch, dtype),
+                      device="cuda")
+    pad[..., 1:] = _on_card(x, dtype)
+    return pad[..., 1:]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernel_takes_unaligned_views(dtype):
+    B, H, KV, S, hd = 2, 4, 2, 70, 64
+    rng = np.random.default_rng(2)
+    q, k, v = (_unaligned(rng.standard_normal((B, S, n, hd), np.float32),
+                          dtype).transpose(1, 2) for n in (H, KV, KV))
+    assert q.data_ptr() % 16 and q.stride(1) % 8
+    kvl = torch.tensor([70, 33], dtype=torch.int32, device="cuda")
+    got = flash_attention(q, k, v, causal=True, window=40, kv_len=kvl)
+    want = attention_ref(q, k, v, causal=True, window=40, kv_len=kvl)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_norm_mean_takes_an_unaligned_base(dtype):
+    B, S, D = 3, 20, 1024
+    rng = np.random.default_rng(3)
+    flat = _unaligned(rng.standard_normal((1, B * S * D), np.float32), dtype)
+    h = flat.reshape(B, S, D)
+    assert h.is_contiguous() and h.data_ptr() % 16
+    m = (torch.arange(S, device="cuda")[None]
+         < torch.tensor([20, 0, 7], device="cuda")[:, None]).float()
+    torch.testing.assert_close(pool_norm(h, m, "mean"),
+                               pool_norm_ref(h, m, "mean"), rtol=0, atol=1e-5)
 
 
 def test_fp32_embed_refuses_tf32():

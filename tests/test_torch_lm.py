@@ -260,6 +260,26 @@ def test_greedy_tokens_equal_the_jax_backend(hymba, monkeypatch):
         np.testing.assert_array_equal(g, w)
 
 
+def test_empty_prompt_is_refused_as_by_the_jax_backend(hymba, monkeypatch):
+    jc, tc, params, tree = hymba
+    monkeypatch.setattr(jL, "COMPUTE_DTYPE", jnp.float32)
+    payloads = make_queries(3, tc.vocab_size, length=12, seed=5)
+    qs = [Query(qid=i, payload=p, length=len(p)) for i, p in enumerate(payloads)]
+    ref = JaxLMBackend(jc, params, max_prompt=24, max_new_tokens=3)
+    be = LMGenerateBackend(tc, port_params(tree), max_prompt=24,
+                           max_new_tokens=3, device="cpu",
+                           compute_dtype=torch.float32)
+    empty = qs[:1] + [Query(qid=7, payload=np.zeros(0, np.int32), length=0)] \
+        + qs[1:]
+    with pytest.raises(ValueError):
+        ref.embed_batch(empty)
+    with pytest.raises(ValueError, match="query 7"):
+        be.embed_batch(empty)
+    # the same batch without the empty payload still gives equal tokens
+    for g, w in zip(be.embed_batch(qs), ref.embed_batch(qs)):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_teacher_forced_generation_returns_each_steps_logits(hymba):
     _, tc, _, tree = hymba
     be = LMGenerateBackend(tc, port_params(tree), max_prompt=24,
