@@ -13,9 +13,12 @@ non-zero:
   kernels  each kernel against its plain PyTorch version on the same inputs
            on the card, with its time, the plain version's, one PyTorch
            library call's (a yardstick the port never calls) and the bound.
-           The summary's flash_attention and pool_norm rows also carry a
-           `cases` map: bf16 attention at bge's and hymba's prefill shapes,
-           and mean pooling in fp32 and bf16.
+           The summary's flash_attention, pool_norm, quant_matmul and
+           flash_decode rows also carry a `cases` map: bf16 attention at
+           bge's and hymba's prefill shapes, mean pooling in fp32 and bf16,
+           the three bge projections in fp32 and w_in in bf16, and decode
+           attention at the served shape in the three (q, cache) pairs, on
+           a 1024-slot ring and at starcoder2-7b's G 9 x hd 128.
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
            vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
@@ -301,24 +304,45 @@ def _qm_inputs(dev, M, K, N, seed=2):
     return x, w8.to(dev), torch.from_numpy(s.astype(np.float32)).to(dev)
 
 
-def quant_matmul_case(dev, M, K, N) -> dict:
-    """Weight-only int8 GEMM, fp32 x (the int8 policy's dtype)."""
+def quant_matmul_case(dev, M, K, N, dt=None) -> dict:
+    """Weight-only int8 GEMM: fp32 x (the int8 policy's dtype), or bf16."""
+    import torch
+
     from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_ref
 
+    dt = dt or torch.float32
     x, w8, s = _qm_inputs(dev, M, K, N)
+    x = x.to(dt)
     got = quant_matmul(x, w8, s)
     want = quant_matmul_ref(x, w8, s)
-    # fp32 FMAs in another order than the plain version's GEMM: the error
-    # is held to 1e-5 of the output's largest magnitude
-    err = (got - want).abs().max().item()
-    tol = 1e-5 * want.abs().max().item()
-    out = {"M": M, "K": K, "N": N, "dtype": "float32", "max_abs_err": err,
-           "tol": tol, "ok": err <= tol and got.dtype == want.dtype}
-    nbytes = 4 * M * K + K * N + 4 * N + 4 * M * N
-    out["bound_ms"], out["bound_by"] = bound(nbytes, 2 * M * K * N, "float32")
+    # fp32: exact products summed in another order than the plain
+    # version's GEMM, held to 1e-5 of the output's largest magnitude; bf16:
+    # both round one fp32 sum to bf16
+    err, mag = _rel_err(got, want)
+    tol = (1e-5 if dt == torch.float32 else 2e-2) * mag
+    out = {"M": M, "K": K, "N": N, "dtype": dtype_name(dt),
+           "max_abs_err": err, "tol": tol,
+           "ok": err <= tol and got.dtype == want.dtype}
+    # reported, not held: the kernel's and the plain version's distance
+    # from the float64 product, relative to its largest magnitude
+    exact = (x.double() @ w8.double()) * s.double()
+    big = exact.abs().max().item()
+    out["rel_err_vs_fp64"] = (got.double() - exact).abs().max().item() / big
+    out["plain_rel_err_vs_fp64"] = ((want.double() - exact).abs().max().item()
+                                    / big)
+    del exact
+    # The products run on the bf16 tensor cores: three passes for an fp32
+    # x (h, m and l of its exact three-way bf16 split), one for a bf16 x.
+    # Three are the least for fp32-accurate products: a bf16 term holds 8
+    # of an fp32's 24 significant bits, and int8 weights are exact in one.
+    # (2MKN fp32 FMAs at 67 TFLOP/s bound a CUDA-core kernel only.)
+    passes = 3 if dt == torch.float32 else 1
+    nbytes = x.element_size() * (M * K + M * N) + K * N + 4 * N
+    out["bound_ms"], out["bound_by"] = bound(nbytes, passes * 2 * M * K * N,
+                                             "bfloat16")
     out["kernel_ms"] = time_ms(lambda: quant_matmul(x, w8, s), dev)
     out["plain_ms"] = time_ms(lambda: quant_matmul_ref(x, w8, s), dev)
-    out["library_ms"] = time_ms(lambda: x @ (w8.float() * s), dev)
+    out["library_ms"] = time_ms(lambda: x @ (w8.to(dt) * s.to(dt)), dev)
     return out
 
 
@@ -566,6 +590,7 @@ def phase_kernels(args, dev) -> dict:
     M = B * S
     kn = MAIN_KN if t else ((D, D), (D, 4 * D), (4 * D, D))
     qm = [quant_matmul_case(dev, M, k, n) for k, n in kn]
+    qm.append(quant_matmul_case(dev, M, *kn[1], bf16))
     qr = [quantize_rows_case(dev, M, k) for k in sorted({k for k, _ in kn})]
     w8 = [w8a8_case(dev, M, k, n) for k, n in kn]
     # the LM path (on the CPU: smoke widths)
@@ -588,7 +613,12 @@ def phase_kernels(args, dev) -> dict:
                             f32, f32),
           # empty slots, and no valid slot at all
           flash_decode_case(dev, 3, KV, G, hd, Sc, 40, 0, f32, f32),
-          flash_decode_case(dev, 2, KV, G, hd, 16, -1, 0, bf16, f32)]
+          flash_decode_case(dev, 2, KV, G, hd, 16, -1, 0, bf16, f32),
+          # starcoder2-7b's decode (36 heads on 4 KV heads of 128, window
+          # 4096) on a full ring at B 1: 4 pairs, so the slots split over
+          # clusters of 8 blocks (on the CPU: G 9 at a smoke width)
+          flash_decode_case(dev, 1, 4, 9, 128 if t else 32, 4096 if t else 64,
+                            5000 if t else 70, 4096 if t else 64, bf16, f32)]
     cases = ([("flash_attention", c) for c in attn]
              + [("pool_norm", c) for c in pools]
              + [("quant_matmul", c) for c in qm]
@@ -616,7 +646,16 @@ def phase_kernels(args, dev) -> dict:
             "w8a8_matmul": w8[1], "rmsnorm": rms[1], "ssm_scan": ssm[0],
             "flash_decode": fd[0],
             # the redesigned paths, each at the main paths' shapes
-            "cases": {"flash_attention": attn_cases, "pool_norm": pool_cases}}
+            "cases": {"flash_attention": attn_cases, "pool_norm": pool_cases,
+                      "quant_matmul": {
+                          "w_qkvo_float32": qm[0], "w_in_float32": qm[1],
+                          "w_out_float32": qm[2], "w_in_bfloat16": qm[3]},
+                      "flash_decode": {
+                          "served_q_bf16_cache_f32": fd[0],
+                          "served_q_f32_cache_f32": fd[1],
+                          "served_q_bf16_cache_bf16": fd[2],
+                          "ring1024_B2_q_bf16_cache_f32": fd[3],
+                          "starcoder2_G9_hd128_ring4096": fd[-1]}}}
 
 
 def golden_tree():

@@ -54,8 +54,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     position per slot (-1 = empty); pos: the query's position, a Python
     int.  Returns (B, KV, G, hd) in q's dtype, contiguous.  q, k and v may
     be strided views with a contiguous head dim; (q, cache) dtypes are one
-    of ``PAIRS``.  A shape the kernel cannot launch (too much shared memory
-    for G x hd, too many batch rows) raises with the CUDA error."""
+    of ``PAIRS``.  The kernel splits each (row, KV head)'s slots over a
+    cluster of up to 8 blocks, in one launch.  A shape it cannot launch (hd
+    above 512, a grid past the card's limits) raises with the CUDA
+    error."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kpos, pos, window=window)
     _check(q, k, v, kpos, pos)

@@ -26,7 +26,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # an int32 sum of K products of two int8 values in [-127, 127] is exact
 # while K * 127^2 < 2^31
 MAX_W8A8_K = 133_000
-MAX_M = 65535 * 64                # row tiles of 64 ride grid.y
+# row tiles ride grid.y (at most 65535 of them): 128 rows a tile in
+# quant_matmul, 64 in w8a8_matmul
+MAX_M = {"quant_matmul": 65535 * 128, "w8a8_matmul": 65535 * 64}
 _count_lock = threading.Lock()
 
 
@@ -72,8 +74,8 @@ def _check_weight(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
 
 
 def _check_m(M: int, what: str) -> None:
-    if M > MAX_M:
-        raise ValueError(f"{what}: {M} rows, at most {MAX_M}")
+    if M > MAX_M[what]:
+        raise ValueError(f"{what}: {M} rows, at most {MAX_M[what]}")
 
 
 def quant_matmul(x: torch.Tensor, w8: torch.Tensor,

@@ -188,7 +188,9 @@ def test_fp32_embed_refuses_tf32():
 # K = 4096; w_in: N = 4096)
 QM_CASES = [(128, 128, 128), (200, 96, 260), (7, 48, 130), (256, 320, 64),
             (1, 16, 24), (1536, 1024, 1024), (1536, 1024, 4096),
-            (1536, 4096, 1024)]
+            (1536, 4096, 1024),
+            # ragged 128 x 128 tiles and K steps of 32 on every side
+            (1537, 1000, 4100)]
 
 
 def _qm_inputs(M, K, N, seed=7):
@@ -220,6 +222,57 @@ def test_quant_matmul_kernel_matches_plain(case, dtype):
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-5 * want.abs().max().item())
     else:       # both round one fp32 sum to bf16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_quant_matmul_holds_fp32_accuracy_at_every_magnitude():
+    """fp32 x rows from 1e-30 to 1e30: each row within 1e-5 of its own
+    largest output (the three-way bf16 split keeps all 24 bits of x); a zero
+    row comes out zero; a row of subnormals is held to 1e-5 of the whole
+    output's largest magnitude, since the tensor cores may flush subnormal
+    inputs."""
+    M, K, N = 64, 1024, 512
+    x, w8, s = _qm_inputs(M, K, N, seed=11)
+    x[:M - 2] *= np.geomspace(1e-30, 1e30, M - 2, dtype=np.float32)[:, None]
+    x[M - 2] = 0.0
+    x[M - 1] = (np.random.default_rng(12).uniform(-1, 1, K)
+                * np.float32(1e-39)).astype(np.float32)
+    assert (np.abs(x[M - 1]) < np.finfo(np.float32).tiny).all()
+    x = _on_card(x, "float32")
+    before = quant_matmul.launches
+    got = quant_matmul(x, w8, s)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    want = quant_matmul_ref(x, w8, s)
+    assert torch.isfinite(got).all()
+    err = (got - want).abs()
+    row_max = want.abs().amax(dim=1)
+    assert (err[:M - 2].amax(dim=1) <= 1e-5 * row_max[:M - 2]).all(), (
+        (err[:M - 2].amax(dim=1) / row_max[:M - 2]).max().item())
+    assert (got[M - 2] == 0).all()
+    assert err[M - 1].max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [1024, 1000])
+def test_quant_matmul_element_copy_path_on_an_odd_row_stride(N, dtype):
+    """An odd row stride (and, at N 1000, a w8 row that is not a multiple
+    of 16 bytes) takes the instantiation that copies element by element,
+    over many 128 x 128 tiles and K steps."""
+    M, K = 300, 1024
+    x, w8, s = _qm_inputs(M, K, N, seed=13)
+    view = _on_card(np.pad(x, ((0, 0), (0, 1))), dtype)[:, :K]
+    assert view.stride(0) % 2 == 1
+    before = quant_matmul.launches
+    got = quant_matmul(view, w8, s)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    want = quant_matmul_ref(view.contiguous(), w8, s)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+    else:
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                    atol=2e-2)
 
@@ -468,7 +521,16 @@ def _ring_kpos(Sc, pos):
 # under its window and under a narrower one; empty slots; no valid slot
 FD_CASES = [(16, 5, 5, 64, 80, 79, 1024), (2, 5, 5, 64, 1024, 1100, 1024),
             (2, 5, 5, 64, 1024, 1100, 1000), (3, 2, 4, 32, 80, 40, 0),
-            (2, 1, 3, 128, 70, 69, 16), (2, 2, 2, 64, 16, -1, 0)]
+            (2, 1, 3, 128, 70, 69, 16), (2, 2, 2, 64, 16, -1, 0),
+            # one (row, KV head) and 4096 slots: a full cluster of 8 blocks
+            # of 512 slots, the window's valid slots in one or two of them
+            (1, 1, 5, 64, 4096, 5000, 1024), (1, 1, 5, 64, 4096, 5000, 1000),
+            # 200 slots over 7 blocks of 29: split boundaries inside every
+            # 64-slot tile
+            (1, 2, 4, 64, 200, 199, 0),
+            # starcoder2-7b's decode: 36 heads on 4 KV heads of 128, window
+            # 4096 (G 9: two passes of 8 query heads)
+            (1, 4, 9, 128, 4096, 5000, 4096)]
 FD_DTYPES = [("float32", "float32"), ("bfloat16", "float32"),
              ("bfloat16", "bfloat16")]
 
@@ -495,6 +557,35 @@ def test_flash_decode_kernel_matches_plain(case, dtypes):
         assert (got == 0).all() and (want == 0).all()
     else:
         _close(got, want, qdt)
+
+
+@pytest.mark.parametrize("dtypes", FD_DTYPES, ids=lambda d: "q-{}-cache-{}"
+                         .format(*d))
+@pytest.mark.parametrize("view", ["q", "cache"])
+def test_flash_decode_takes_unaligned_views(view, dtypes):
+    """A q view, or a cache view, whose base is one element past a 16-byte
+    boundary and whose rows are one element longer than hd: q is read
+    element by element anyway, the cache takes the element-load path."""
+    B, KV, G, hd, Sc, pos = 2, 5, 5, 64, 300, 299
+    qdt, cdt = dtypes
+    rng = np.random.default_rng(10)
+    qn = rng.standard_normal((B, KV, G, hd), np.float32)
+    kn, vn = (rng.standard_normal((B, Sc, KV, hd), np.float32)
+              for _ in range(2))
+    if view == "q":
+        q = _unaligned(qn, qdt)
+        k, v = _on_card(kn, cdt), _on_card(vn, cdt)
+        assert q.data_ptr() % 16
+    else:
+        q = _on_card(qn, qdt)
+        k, v = _unaligned(kn, cdt), _unaligned(vn, cdt)
+        assert k.data_ptr() % 16 and v.stride(1) % 8
+    kpos = _ring_kpos(Sc, pos)
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, kpos, pos)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    _close(got, decode_attention_ref(q, k, v, kpos, pos), qdt)
 
 
 def test_flash_decode_reads_a_layer_of_the_stacked_cache_and_a_q_view():
