@@ -13,12 +13,14 @@ non-zero:
   kernels  each kernel against its plain PyTorch version on the same inputs
            on the card, with its time, the plain version's, one PyTorch
            library call's (a yardstick the port never calls) and the bound.
-           The summary's flash_attention, pool_norm, quant_matmul and
-           flash_decode rows also carry a `cases` map: bf16 attention at
-           bge's and hymba's prefill shapes, mean pooling in fp32 and bf16,
-           the three bge projections in fp32 and w_in in bf16, and decode
-           attention at the served shape in the three (q, cache) pairs, on
-           a 1024-slot ring and at starcoder2-7b's G 9 x hd 128.
+           The summary's flash_attention, pool_norm, quant_matmul,
+           w8a8_matmul, rmsnorm and flash_decode rows also carry a `cases`
+           map: bf16 attention at bge's and hymba's prefill shapes, mean
+           pooling in fp32 and bf16, the three bge projections in fp32 and
+           w_in in bf16 (weight-only and W8A8), rmsnorm at hymba's prefill
+           and decode rows in fp32 and bf16, and decode attention at the
+           served shape in the three (q, cache) pairs, on a 1024-slot ring
+           and at starcoder2-7b's G 9 x hd 128.
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
            vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
@@ -375,31 +377,35 @@ def quantize_rows_case(dev, M, K) -> dict:
     return out
 
 
-def w8a8_case(dev, M, K, N) -> dict:
-    """int8 x int8 GEMM on the int8 rows of an fp32 x, fp32 out."""
+def w8a8_case(dev, M, K, N, out_dtype=None) -> dict:
+    """int8 x int8 GEMM on the int8 rows of an fp32 x, fp32 (the W8A8
+    policy's) or bf16 out: bit for bit the plain version."""
     import torch
 
     from repro_torch.kernels.quant_matmul import (quantize_activations,
                                                   w8a8_matmul, w8a8_matmul_ref)
 
+    dt = out_dtype or torch.float32
     x, w8, s = _qm_inputs(dev, M, K, N, seed=4)
     x8, xs = quantize_activations(x)
-    got = w8a8_matmul(x8, w8, xs, s)
-    want = w8a8_matmul_ref(x8, w8, xs, s)
-    # the int32 sum is exact on both sides and the epilogue is the same
-    # fp32 multiplies in the same order
-    err = (got - want).abs().max().item()
-    rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
-    out = {"M": M, "K": K, "N": N, "dtype": "int8->float32",
-           "max_abs_err": err, "max_rel_err": rel, "tol_rel": 1e-6,
-           "ok": rel <= 1e-6}
-    nbytes = M * K + K * N + 4 * M + 4 * N + 4 * M * N
+    got = w8a8_matmul(x8, w8, xs, s, out_dtype=dt)
+    want = w8a8_matmul_ref(x8, w8, xs, s, out_dtype=dt)
+    # the int32 sum is exact on both sides, both round it to fp32 to nearest
+    # even, and the epilogue is the same fp32 multiplies in the same order
+    bitwise = bool(torch.equal(got, want))
+    out = {"M": M, "K": K, "N": N, "dtype": f"int8->{dtype_name(dt)}",
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "tol": 0, "bitwise": bitwise, "ok": bitwise}
+    nbytes = M * K + K * N + 4 * M + 4 * N + got.element_size() * M * N
     out["bound_ms"], out["bound_by"] = bound(nbytes, 2 * M * K * N, "int8")
-    out["kernel_ms"] = time_ms(lambda: w8a8_matmul(x8, w8, xs, s), dev)
-    out["plain_ms"] = time_ms(lambda: w8a8_matmul_ref(x8, w8, xs, s), dev)
+    out["kernel_ms"] = time_ms(
+        lambda: w8a8_matmul(x8, w8, xs, s, out_dtype=dt), dev)
+    out["plain_ms"] = time_ms(
+        lambda: w8a8_matmul_ref(x8, w8, xs, s, out_dtype=dt), dev)
     try:      # torch._int_mm: cuBLAS's int8 GEMM, then the same epilogue
         out["library_ms"] = time_ms(
-            lambda: torch._int_mm(x8, w8).float() * xs[:, None] * s, dev)
+            lambda: (torch._int_mm(x8, w8).float() * xs[:, None] * s).to(dt),
+            dev)
         out["library_int_mm_only_ms"] = time_ms(lambda: torch._int_mm(x8, w8),
                                                 dev)
     except (RuntimeError, AttributeError) as e:
@@ -593,6 +599,7 @@ def phase_kernels(args, dev) -> dict:
     qm.append(quant_matmul_case(dev, M, *kn[1], bf16))
     qr = [quantize_rows_case(dev, M, k) for k in sorted({k for k, _ in kn})]
     w8 = [w8a8_case(dev, M, k, n) for k, n in kn]
+    w8.append(w8a8_case(dev, M, *kn[1], bf16))
     # the LM path (on the CPU: smoke widths)
     D, DI, KV, G, hd = ((LM_D, LM_DI, LM_KV, LM_G, LM_HD) if t
                         else (128, 256, 2, 2, 32))
@@ -650,6 +657,12 @@ def phase_kernels(args, dev) -> dict:
                       "quant_matmul": {
                           "w_qkvo_float32": qm[0], "w_in_float32": qm[1],
                           "w_out_float32": qm[2], "w_in_bfloat16": qm[3]},
+                      "w8a8_matmul": {
+                          "w_qkvo_float32": w8[0], "w_in_float32": w8[1],
+                          "w_out_float32": w8[2], "w_in_bfloat16_out": w8[3]},
+                      "rmsnorm": {
+                          "prefill_float32": rms[0], "prefill_bfloat16": rms[1],
+                          "decode_float32": rms[2], "decode_bfloat16": rms[3]},
                       "flash_decode": {
                           "served_q_bf16_cache_f32": fd[0],
                           "served_q_f32_cache_f32": fd[1],

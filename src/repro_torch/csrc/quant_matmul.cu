@@ -17,6 +17,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+constexpr int MAX_GRID_Y = 65535;
+
 // ---------------------------------------------------------------------------
 // windve_quant_matmul: out[m, n] = (sum_k x[m, k] * w8[k, n]) * scale[n]
 //
@@ -529,114 +531,328 @@ quantize_rows_kernel(const T* __restrict__ x, long long ldx,
 // (w8a8_matmul_pallas / _w8a8_matmul_kernel).
 //
 // What bounds it on this card: bytes.  At the int8 tensor cores' 1,979
-// TOP/s the 2*M*K*N operations of bge's shapes take less time than writing
-// the fp32 output once.  This first kernel runs on the CUDA cores instead,
-// where its operations, not its bytes, set its time.
+// TOP/s the 2*M*K*N operations of bge's w_in take less time than writing
+// its fp32 output once; at w_out (K 4096) the operations do.
 //
-// Design: __dp4a, four int8 products summed into an int32 per instruction,
-// with exact int32 accumulation.  It is the simplest exact int8 x int8
-// product there is: no fragment layouts, a 64 x 64 block tile and a
-// 4 x 4 register tile per thread.  The int8
-// tensor cores (mma.sync .s32.s8.s8.s32, or wgmma) are the later, faster
-// kernel.  Each K step of 64 stages x8 rows and w8 columns in shared memory
-// as packed int8x4 words along K (the w8 tile is transposed on the way in,
-// since w8 is K-major); the rows are padded by one word so that the 16
-// threads reading 16 columns hit 16 banks.  Bytes past K, M or N are
-// zero-filled, so a padded lane adds exactly 0 to the sum.  The epilogue
-// converts the int32 sum to fp32 and scales it in the reference's order.
-// The wrapper refuses K > 133,000, past which K * 127^2 overflows int32.
+// Design: mma.sync.m16n8k32 s8 x s8 -> s32 on the int8 tensor cores.  The
+// int32 sum is exact, as is the plain version's float64 one, and both round
+// it to fp32 to nearest even, so with the epilogue's two fp32 multiplies in
+// the reference's order the output is the plain version's bit for bit.
+//   - Tiles: 128 columns a block and 128 or 64 rows (below), warps of
+//     32 x 64 (8 or 4 a block), K steps of 64 through a 4-stage ring of raw
+//     tiles filled with 16-byte cp.async copies.  Rows past M, columns past
+//     N and K are zero-filled, so they add exactly 0.  x8 views whose row
+//     stride or base is not 16-byte aligned, or K not a multiple of 16, and
+//     w8 whose N is not a multiple of 16, take instantiations that copy
+//     element by element.
+//   - A fragments: ldmatrix of x8 rows padded to 80 bytes (conflict-free);
+//     an int8 16 x 32 tile is a b16 16 x 16 one.
+//   - B fragments: an 8-bit mma takes B K-contiguous (.col), but w8 is
+//     (K, N) with N contiguous, and ldmatrix .trans moves only 16-bit
+//     elements.  So the ring keeps w8 as it lies, with each 16 K rows
+//     stored in the order 0 1 4 5 8 9 12 13 2 3 6 7 10 11 14 15 (free: the
+//     copies pick their row).  One ldmatrix.x4.trans of 32 such rows then
+//     gives a lane the bytes of K rows (4t, 4t + 1) and (4t + 2, 4t + 3) at
+//     columns 2g and 2g + 1 of a 16-column chunk, and two byte permutes
+//     make the K-contiguous words of both columns: B for two n8 tiles, one
+//     of the chunk's even columns, one of its odd ones.  Rows padded to 144
+//     bytes keep the ldmatrix conflict-free.
+//   - Epilogue: with that column order a lane holds 4 neighbouring columns
+//     of a row in each chunk, so the result is stored 16 bytes (fp32) or
+//     8 bytes (bf16) at a time straight from the accumulators.
+// Tile rows: 128 where that still gives two blocks to each of an H100's
+// 132 SMs, else 64, so that bge's N = 1024 projections (96 blocks of 128
+// rows) fill the card in one wave.  The other tile size at each of bge's
+// shapes, fewer stages, longer K steps and warps of 64 x 64 were each
+// timed against this design (benchmarks/torch_kernel_variants.py; numbers
+// in PERF.md).  The wrapper refuses K > 133,000, past which K * 127^2
+// overflows int32.
 // ---------------------------------------------------------------------------
-constexpr int W8_BM = 64, W8_BN = 64, W8_BK = 64, W8_THREADS = 256;
-constexpr int W8_KW = W8_BK / 4;            // packed words per tile row
+namespace w8 {
 
-__device__ __forceinline__ int pack4(int8_t a, int8_t b, int8_t c, int8_t d) {
-  return (static_cast<int>(static_cast<uint8_t>(a)))
-       | (static_cast<int>(static_cast<uint8_t>(b)) << 8)
-       | (static_cast<int>(static_cast<uint8_t>(c)) << 16)
-       | (static_cast<int>(static_cast<uint8_t>(d)) << 24);
+constexpr int BN = 128, BK = 64, STAGES = 4;
+constexpr int WM = 32, WN = 64;                 // a warp's tile
+constexpr int MT = WM / 16, WARPS_N = BN / WN;
+constexpr int XP = BK + 16;     // x8 bytes a row of the A tile: 80
+constexpr int WP = BN + 16;     // w8 bytes a row of the B tile: 144
+constexpr int SMS = 132;        // an H100's SMs
+
+template <int BM>
+struct Tile {
+  static constexpr int WARPS_M = BM / WM;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int X_BYTES = BM * XP, W_BYTES = BK * WP;
+  static constexpr int STAGE = X_BYTES + W_BYTES;
+  static constexpr size_t SMEM = STAGES * STAGE;
+  static constexpr int XN = BM * (BK / 16) / THREADS;  // x8 copies a thread
+  static constexpr int WN16 = BK * (BN / 16) / THREADS;  // w8 copies
+  static_assert(BM % WM == 0 && XN >= 1 && WN16 >= 1, "tile too small");
+};
+
+// c (16 x 8, s32) += a (16 x 32, s8, row) * b (32 x 8, s8, col)
+__device__ __forceinline__ void mma(int (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The B tile's row for K row p of a step: within each 16 rows, row 4t + i
+// sits at 2t + i (i < 2) or 8 + 2t + i - 2.
+__device__ __forceinline__ int b_row(int p) {
+  const int t = (p & 15) >> 2, i = p & 3;
+  return (p & ~15) + (i < 2 ? 2 * t + i : 6 + 2 * t + i);
+}
+
+// Copies K steps into a stage: BM rows of BK bytes of x8, BK rows of BN of
+// w8.  Each thread owns the same chunks at every step, so their source rows
+// and bounds are worked out once.  XV / WV: 16-byte cp.async copies, else
+// element copies.
+template <int BM, bool XV, bool WV>
+struct Loader {
+  using T = Tile<BM>;
+  static constexpr int XROWS = T::THREADS / (BK / 16);  // rows between copies
+  static constexpr int WROWS = T::THREADS / (BN / 16);
+  const int8_t* xrow;    // the thread's first x8 row, at its column
+  const int8_t* wrow;    // its first w8 row of step 0, at its column
+  long long ldx;
+  int xrows_ok, xc, wr, N, K, n_left, xs_off, ws_off;
+
+  __device__ __forceinline__ Loader(const int8_t* x, long long ldx_,
+                                    const int8_t* w, int M, int N_, int K_,
+                                    int m0, int n0) {
+    const int r = threadIdx.x / (BK / 16);
+    xc = (threadIdx.x % (BK / 16)) * 16;
+    ldx = ldx_;
+    xrow = x + (long long)(m0 + r) * ldx + xc;
+    xrows_ok = 0;
+#pragma unroll
+    for (int t = 0; t < T::XN; ++t) xrows_ok += m0 + r + t * XROWS < M;
+    xs_off = r * XP + xc;
+    wr = threadIdx.x / (BN / 16);
+    const int wc = (threadIdx.x % (BN / 16)) * 16;
+    N = N_;
+    K = K_;
+    n_left = N - (n0 + wc);
+    wrow = w + (long long)wr * N + n0 + wc;
+    ws_off = wc;
+  }
+
+  __device__ __forceinline__ void load(int8_t* at, int8_t* bt, int k0) const {
+    const int kx = K - (k0 + xc);                  // x8 bytes left in a row
+#pragma unroll
+    for (int t = 0; t < T::XN; ++t) {
+      int8_t* d = at + xs_off + t * XROWS * XP;
+      const int8_t* src = xrow + t * XROWS * ldx + k0;
+      const bool row_ok = t < xrows_ok;
+      if (XV) {                                    // K % 16 == 0
+        if (row_ok && kx > 0)
+          qm::cp_async16(d, src);
+        else
+          *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) d[e] = row_ok && e < kx ? src[e] : 0;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < T::WN16; ++t) {
+      const int p = wr + t * WROWS;                // K row within the step
+      int8_t* d = bt + b_row(p) * WP + ws_off;
+      const int8_t* src = wrow + (long long)(k0 + t * WROWS) * N;
+      const bool k_ok = k0 + p < K;
+      if (WV) {                                    // N % 16 == 0
+        if (k_ok && n_left > 0)
+          qm::cp_async16(d, src);
+        else
+          *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) d[e] = k_ok && e < n_left ? src[e] : 0;
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ void store4v(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4v(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                 *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// The first `left` of 4 values: one 16- or 8-byte store where all 4 fit and
+// the row allows it.
 template <typename T>
-__global__ void __launch_bounds__(W8_THREADS)
-w8a8_matmul_kernel(const int8_t* __restrict__ x8, long long ldx,
-                   const int8_t* __restrict__ w,
-                   const float* __restrict__ x_scale,
-                   const float* __restrict__ w_scale, T* __restrict__ out,
-                   int M, int N, int K) {
-  __shared__ int xs[W8_BM][W8_KW + 1];      // x8 rows, packed along k
-  __shared__ int ws[W8_BN][W8_KW + 1];      // w8 columns, packed along k
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * W8_BM, n0 = blockIdx.x * W8_BN;
-  int acc[4][4];
+__device__ __forceinline__ void store4(T* p, const float (&v)[4], int left,
+                                       bool vec) {
+  if (vec && left >= 4) {
+    store4v(p, v);
+  } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += W8_BK) {
-    // 16 neighbouring threads read 64 neighbouring bytes of one row of x8
-#pragma unroll
-    for (int t = 0; t < W8_BM * W8_KW / W8_THREADS; ++t) {
-      const int i = tid + t * W8_THREADS;
-      const int r = i / W8_KW, c = i % W8_KW;
-      const int m = m0 + r, k = k0 + 4 * c;
-      int8_t b[4] = {0, 0, 0, 0};
-      if (m < M) {
-        const int8_t* p = x8 + (long long)m * ldx + k;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k + j < K) b[j] = p[j];
-      }
-      xs[r][c] = pack4(b[0], b[1], b[2], b[3]);
-    }
-    // 64 neighbouring threads read 64 neighbouring bytes of a row of w8
-#pragma unroll
-    for (int t = 0; t < W8_BN * W8_KW / W8_THREADS; ++t) {
-      const int i = tid + t * W8_THREADS;
-      const int c = i % W8_BN, r = i / W8_BN;
-      const int n = n0 + c, k = k0 + 4 * r;
-      int8_t b[4] = {0, 0, 0, 0};
-      if (n < N) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k + j < K) b[j] = w[(long long)(k + j) * N + n];
-      }
-      ws[c][r] = pack4(b[0], b[1], b[2], b[3]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kw = 0; kw < W8_KW; ++kw) {
-      int a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[ty + 16 * i][kw];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[tx + 16 * j][kw];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    const float xs_m = x_scale[m];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N)
-        store(out + (long long)m * N + n,
-              __fmul_rn(__fmul_rn(static_cast<float>(acc[i][j]), xs_m),
-                        w_scale[n]));
-    }
+    for (int e = 0; e < 4; ++e)
+      if (e < left) store(p + e, v[e]);
   }
 }
 
-constexpr int MAX_GRID_Y = 65535;
+template <typename TO, int BM, bool XV, bool WV>
+__global__ void __launch_bounds__(Tile<BM>::THREADS, 2)
+w8a8_matmul_tc(const int8_t* __restrict__ x8, long long ldx,
+               const int8_t* __restrict__ w,
+               const float* __restrict__ x_scale,
+               const float* __restrict__ w_scale, TO* __restrict__ out,
+               int M, int N, int K) {
+  using T = Tile<BM>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* ring = reinterpret_cast<int8_t*>(smem);   // A | B tile a stage
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int steps = (K + BK - 1) / BK;
+  const Loader<BM, XV, WV> loader(x8, ldx, w, M, N, K, m0, n0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps)
+      loader.load(ring + s * T::STAGE, ring + s * T::STAGE + T::X_BYTES,
+                  s * BK);
+    qm::cp_async_commit();
+  }
+
+  // acc[i][q][e]: m16 tile i, 16-column chunk q, its even (e 0) or odd
+  // (e 1) columns
+  int acc[MT][4][2][4] = {};
+
+  for (int it = 0; it < steps; ++it) {
+    // step it has landed; every thread is done with step it - 1's stage
+    qm::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    {
+      const int ld = it + STAGES - 1;       // into the stage step it - 1 used
+      if (ld < steps) {
+        int8_t* st = ring + (ld % STAGES) * T::STAGE;
+        loader.load(st, st + T::X_BYTES, ld * BK);
+      }
+      qm::cp_async_commit();
+    }
+    const int8_t* at = ring + (it % STAGES) * T::STAGE;
+    const int8_t* bt = at + T::X_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      unsigned a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        qm::ldsm_x4(a[i], reinterpret_cast<const qm::bf16*>(
+                              at + (wm0 + 16 * i + (lane & 15)) * XP + kk
+                              + (lane >> 4) * 16));
+      unsigned b[4][2][2];                  // [chunk][even/odd][k half]
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        unsigned r[4];
+        qm::ldsm_x4_trans(r, reinterpret_cast<const qm::bf16*>(
+                                 bt + (kk + lane) * WP + wn0 + 16 * q));
+        b[q][0][0] = __byte_perm(r[0], r[1], 0x6420);
+        b[q][1][0] = __byte_perm(r[0], r[1], 0x7531);
+        b[q][0][1] = __byte_perm(r[2], r[3], 0x6420);
+        b[q][1][1] = __byte_perm(r[2], r[3], 0x7531);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            mma(acc[i][q][e], a[i], b[q][e][0], b[q][e][1]);
+    }
+  }
+
+  // Lane (g, t) holds, in chunk q, columns 4t .. 4t + 3 of rows g and g + 8
+  // of each m16 tile: even tile's c0, odd's c0, even's c1, odd's c1 (rows
+  // g), and the same of c2, c3 (rows g + 8).
+  const int g = lane / 4, tq = lane % 4;
+  const bool vec = N % 4 == 0;
+  float wsc[4][4];
+  int left[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int n = n0 + wn0 + 16 * q + 4 * tq;
+    left[q] = N - n;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) wsc[q][e] = e < left[q] ? w_scale[n + e] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = m0 + wm0 + 16 * i + g + 8 * hf;
+      if (m >= M) continue;
+      const float xs_m = x_scale[m];
+      TO* orow = out + (long long)m * N + n0 + wn0 + 4 * tq;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (left[q] <= 0) continue;
+        const int c[4] = {acc[i][q][0][2 * hf], acc[i][q][1][2 * hf],
+                          acc[i][q][0][2 * hf + 1], acc[i][q][1][2 * hf + 1]};
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = __fmul_rn(__fmul_rn(static_cast<float>(c[e]), xs_m),
+                           wsc[q][e]);
+        store4<TO>(orow + 16 * q, v, left[q], vec);
+      }
+    }
+}
+
+template <typename TO, int BM, bool XV, bool WV>
+cudaError_t launch(const int8_t* x8, long long ldx, const int8_t* w,
+                   const float* xs, const float* ws, void* out, int M, int N,
+                   int K, cudaStream_t st) {
+  using T = Tile<BM>;
+  auto kernel = w8a8_matmul_tc<TO, BM, XV, WV>;
+  constexpr size_t smem = T::SMEM;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (grid.y > MAX_GRID_Y) return cudaErrorInvalidConfiguration;
+  kernel<<<grid, T::THREADS, smem, st>>>(x8, ldx, w, xs, ws,
+                                         static_cast<TO*>(out), M, N, K);
+  return cudaGetLastError();
+}
+
+template <typename TO, int BM>
+cudaError_t dispatch_copies(const int8_t* x8, long long ldx, const int8_t* w,
+                            const float* xs, const float* ws, void* out,
+                            int M, int N, int K, cudaStream_t st) {
+  const bool xv = ldx % 16 == 0 && K % 16 == 0
+                  && reinterpret_cast<uintptr_t>(x8) % 16 == 0;
+  const bool wv = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  auto kernel = xv ? (wv ? launch<TO, BM, true, true>
+                         : launch<TO, BM, true, false>)
+                   : (wv ? launch<TO, BM, false, true>
+                         : launch<TO, BM, false, false>);
+  return kernel(x8, ldx, w, xs, ws, out, M, N, K, st);
+}
+
+template <typename TO>
+cudaError_t dispatch(const int8_t* x8, long long ldx, const int8_t* w,
+                     const float* xs, const float* ws, void* out, int M,
+                     int N, int K, cudaStream_t st) {
+  const long long big = (long long)((M + 127) / 128) * ((N + BN - 1) / BN);
+  auto run = big >= 2 * SMS ? dispatch_copies<TO, 128>
+                            : dispatch_copies<TO, 64>;
+  return run(x8, ldx, w, xs, ws, out, M, N, K, st);
+}
+
+}  // namespace w8
 
 }  // namespace
 
@@ -694,21 +910,14 @@ extern "C" int windve_w8a8_matmul(const void* x8, long long ldx,
                                   void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   if (K <= 0 || ldx < K) return cudaErrorInvalidValue;
-  const dim3 grid((N + W8_BN - 1) / W8_BN, (M + W8_BM - 1) / W8_BM);
-  if (grid.y > MAX_GRID_Y) return cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* xq = static_cast<const int8_t*>(x8);
   const int8_t* w = static_cast<const int8_t*>(w8);
   const float* xs = static_cast<const float*>(x_scale);
   const float* ws = static_cast<const float*>(w_scale);
-  if (out_dtype == 0) {
-    w8a8_matmul_kernel<float><<<grid, W8_THREADS, 0, st>>>(
-        xq, ldx, w, xs, ws, static_cast<float*>(out), M, N, K);
-  } else if (out_dtype == 1) {
-    w8a8_matmul_kernel<__nv_bfloat16><<<grid, W8_THREADS, 0, st>>>(
-        xq, ldx, w, xs, ws, static_cast<__nv_bfloat16*>(out), M, N, K);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (out_dtype == 0)
+    return w8::dispatch<float>(xq, ldx, w, xs, ws, out, M, N, K, st);
+  if (out_dtype == 1)
+    return w8::dispatch<__nv_bfloat16>(xq, ldx, w, xs, ws, out, M, N, K, st);
+  return cudaErrorInvalidValue;
 }

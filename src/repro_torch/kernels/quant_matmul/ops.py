@@ -27,7 +27,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # while K * 127^2 < 2^31
 MAX_W8A8_K = 133_000
 # row tiles ride grid.y (at most 65535 of them): 128 rows a tile in
-# quant_matmul, 64 in w8a8_matmul
+# quant_matmul, 128 or 64 in w8a8_matmul (so 64 sets its limit)
 MAX_M = {"quant_matmul": 65535 * 128, "w8a8_matmul": 65535 * 64}
 _count_lock = threading.Lock()
 
@@ -178,7 +178,9 @@ def quant_matmul_w8a8(x: torch.Tensor, w8: torch.Tensor,
     """x: (..., K) float; w8: (K, N) int8; w_scale: (N,) fp32 -> (..., N) in
     x's dtype: per-row int8 activations (``quantize_rows``), then the int8 x
     int8 product with int32 accumulation (``w8a8_matmul``).  The quantize
-    step is its own launch; fusing it into the GEMM is later work."""
+    step stays its own launch: a row's scale needs the row's amax over all
+    of K before its first product, so a fused prologue would re-read every
+    row of x once per column tile."""
     x8, x_scale = quantize_rows(x)
     return w8a8_matmul(x8, w8, x_scale, w_scale, out_dtype=x.dtype)
 

@@ -10,7 +10,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_ROWS = 2 ** 31 - 1            # one block a row, on grid.x
+MAX_ROWS = 2 ** 31 - 1            # at most a block a row, on grid.x
 _count_lock = threading.Lock()
 
 

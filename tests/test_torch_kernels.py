@@ -193,3 +193,24 @@ class TestRouting:
         assert path == build.library_path()    # stable for unchanged sources
         assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
+
+    @pytest.mark.parametrize("name", ["w8a8", "rmsnorm"])
+    def test_kernel_variant_substitutions_apply_to_the_sources(self, name):
+        """benchmarks/torch_kernel_variants.py times variants made by
+        literal substitutions in this tree's CUDA sources: each must still
+        find its text, or the variant would time the tree's kernel."""
+        import importlib.util
+        import os
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        spec = importlib.util.spec_from_file_location(
+            "torch_kernel_variants",
+            os.path.join(root, "benchmarks", "torch_kernel_variants.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        for variant, (src, subs, from_parent) in mod.SETS[name].items():
+            if from_parent:
+                continue
+            text = (build.CSRC / src).read_text()
+            for old, _ in subs:
+                assert old in text, (variant, old)

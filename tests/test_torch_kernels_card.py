@@ -328,8 +328,9 @@ def test_weights_quantize_on_the_card_as_on_the_cpu():
 @pytest.mark.parametrize("out", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", QM_CASES, ids=_qm_id)
 def test_w8a8_matmul_kernel_matches_plain(case, out):
-    """The int32 product is exact on both sides, and the epilogue is the
-    same fp32 multiplies in the same order: equal within fp32 rounding."""
+    """The int32 product is exact on both sides, both round it to fp32 to
+    nearest even, and the epilogue is the same fp32 multiplies in the same
+    order: equal bit for bit."""
     x, w8, s = _qm_inputs(*case)
     x8, xs = quantize_activations(_on_card(x, "float32"))
     dt = getattr(torch, out)
@@ -339,7 +340,56 @@ def test_w8a8_matmul_kernel_matches_plain(case, out):
     assert w8a8_matmul.launches == before + 1
     want = w8a8_matmul_ref(x8, w8, xs, s, out_dtype=dt)
     assert got.dtype == dt
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert torch.equal(got, want)
+
+
+def _w8a8_extreme(M, K, N, seed=17):
+    """x8 and w8 all +-127: column 0 of w8 and row 0 of x8 all +127, so
+    out[0, 0]'s sum is K * 127^2 (66,064,384 at K 4096, past 2^24, where
+    fp32 keeps only every fourth integer); the other signs random."""
+    rng = np.random.default_rng(seed)
+    x8 = (127 * rng.choice([-1, 1], (M, K))).astype(np.int8)
+    w8 = (127 * rng.choice([-1, 1], (K, N))).astype(np.int8)
+    x8[0], w8[:, 0] = 127, 127
+    xs = rng.uniform(1e-3, 1e-2, M).astype(np.float32)
+    ws = rng.uniform(1e-3, 1e-2, N).astype(np.float32)
+    return (torch.from_numpy(a).cuda() for a in (x8, w8, xs, ws))
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(96, 4096, 640), (1536, 4096, 4096)],
+                         ids=_qm_id)
+def test_w8a8_matmul_rounds_sums_past_2_24_as_the_plain_version(case, out):
+    """Sums up to 66,064,384 (> 2^24) under both tile sizes: the int -> fp32
+    rounding is the plain version's (float64 -> fp32, nearest even)."""
+    M, K, N = case
+    x8, w8, xs, ws = _w8a8_extreme(M, K, N)
+    dt = getattr(torch, out)
+    got = w8a8_matmul(x8, w8, xs, ws, out_dtype=dt)
+    torch.cuda.synchronize()
+    want = w8a8_matmul_ref(x8, w8, xs, ws, out_dtype=dt)
+    acc = x8[:1].double() @ w8[:, :1].double()
+    assert acc.item() == K * 127 ** 2 > 2 ** 24
+    assert torch.equal(got, want)
+
+
+# (M, K, N) for each tile the launcher picks: 64-row tiles while 128-row
+# ones would give fewer than two blocks an SM (M not a multiple of 64,
+# and M a multiple), 128-row tiles above (M not a multiple of 128, and an
+# odd N that takes the element-copy path for w8)
+W8_TILE_CASES = [(1000, 512, 1024), (1536, 1024, 1024), (2100, 256, 2176),
+                 (1600, 320, 4099)]
+
+
+@pytest.mark.parametrize("case", W8_TILE_CASES, ids=_qm_id)
+def test_w8a8_matmul_under_each_tile_size(case):
+    x, w8, s = _qm_inputs(*case, seed=19)
+    x8, xs = quantize_activations(_on_card(x, "float32"))
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(x8, w8, xs, s)
+    torch.cuda.synchronize()
+    assert w8a8_matmul.launches == before + 1
+    assert torch.equal(got, w8a8_matmul_ref(x8, w8, xs, s))
 
 
 def test_w8a8_router_is_quantize_rows_then_the_gemm():
@@ -350,8 +400,7 @@ def test_w8a8_router_is_quantize_rows_then_the_gemm():
     torch.cuda.synchronize()
     assert (quantize_rows.launches, w8a8_matmul.launches) == (q0 + 1, g0 + 1)
     x8, xs = quantize_activations(x)
-    want = w8a8_matmul_ref(x8, w8, xs, s)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert torch.equal(got, w8a8_matmul_ref(x8, w8, xs, s))
 
 
 def test_int8_kernels_read_a_row_strided_view():
@@ -369,9 +418,13 @@ def test_int8_kernels_read_a_row_strided_view():
     assert torch.equal(x8, w8_) and torch.equal(xs, ws_)
     wide8 = torch.zeros((200, 128), dtype=torch.int8, device="cuda")
     wide8[:, :96] = x8
-    torch.testing.assert_close(w8a8_matmul(wide8[:, :96], w8, xs, s),
-                               w8a8_matmul_ref(x8, w8, xs, s),
-                               rtol=1e-6, atol=0)
+    assert torch.equal(w8a8_matmul(wide8[:, :96], w8, xs, s),
+                       w8a8_matmul_ref(x8, w8, xs, s))
+    # an odd row stride: the element-copy path for x8
+    odd8 = torch.zeros((200, 97), dtype=torch.int8, device="cuda")
+    odd8[:, :96] = x8
+    assert torch.equal(w8a8_matmul(odd8[:, :96], w8, xs, s),
+                       w8a8_matmul_ref(x8, w8, xs, s))
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take():
@@ -434,8 +487,13 @@ def _close(got, want, dtype):
     assert err <= TOL[dtype] * max(want.float().abs().max().item(), 1e-30), err
 
 
-# (R, D): hymba-1.5b's prefill (16 x 64 tokens) and decode rows, an odd D
-RMS_CASES = [(1024, 1600), (16, 1600), (7, 77)]
+# (R, D): hymba-1.5b's prefill (16 x 64 tokens) and decode rows, an odd D;
+# the norm widths of the configs queued next (stablelm-1.6b 2048 is below
+# 4096; falcon-mamba-7b 4096, qwen2-72b 8192); a D that is a multiple of 4
+# but not of 8 (fp32 vector path, bf16 element path); rows too wide to hold
+# in registers (D 4099 on the element path, 20000 on the vector path)
+RMS_CASES = [(1024, 1600), (16, 1600), (7, 77), (5, 4096), (3, 8192),
+             (9, 1604), (2, 4099), (2, 20000)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -454,12 +512,16 @@ def test_rmsnorm_kernel_matches_plain(case, dtype):
     _close(got, rmsnorm_ref(x, scale, 1e-5), dtype)
 
 
-def test_rmsnorm_kernel_reads_strided_rows():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", [200, 203], ids=lambda w: f"stride{w}")
+def test_rmsnorm_kernel_reads_strided_rows(width, dtype):
+    """Rows 200 values apart (16-byte aligned in both dtypes) and 203 apart
+    (not: the element path)."""
     rng = np.random.default_rng(4)
-    wide = _on_card(rng.standard_normal((2, 9, 200), np.float32), "bfloat16")
+    wide = _on_card(rng.standard_normal((2, 9, width), np.float32), dtype)
     scale = _on_card(rng.standard_normal(160).astype(np.float32), "float32")
     x = wide[..., :160]
-    _close(rmsnorm(x, scale), rmsnorm_ref(x, scale), "bfloat16")
+    _close(rmsnorm(x, scale), rmsnorm_ref(x, scale), dtype)
 
 
 def _ssm_inputs(B, S, DI, N, dtype, seed=5):

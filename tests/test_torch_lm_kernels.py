@@ -73,7 +73,8 @@ def bf16_ulp(x):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 5, 96), (7, 1600), (3, 77)],
+@pytest.mark.parametrize("shape", [(2, 5, 96), (7, 1600), (3, 77), (5, 4096),
+                                   (3, 8192), (9, 1604)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_rmsnorm_plain_matches_jax_ref_and_pallas(shape, dtype):
     rng = np.random.default_rng(0)

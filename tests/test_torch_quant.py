@@ -274,6 +274,31 @@ def test_w8a8_matmul_plain_matches_pallas(case, out):
                                np.asarray(want, np.float32), atol=0, rtol=tol)
 
 
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_w8a8_matmul_plain_matches_pallas_past_2_24(out):
+    """x8 and w8 all +-127 at K 4096: out[0, 0]'s int32 sum is 127^2 * 4096
+    = 66,064,384, past 2^24, where fp32 holds only every fourth integer.
+    The plain version rounds it (float64 -> fp32) as the reference's kernel
+    does (int32 -> fp32), and the epilogue is the same: equal bit for bit."""
+    M, K, N = 8, 4096, 16
+    rng = np.random.default_rng(17)
+    x8 = (127 * rng.choice([-1, 1], (M, K))).astype(np.int8)
+    w8 = (127 * rng.choice([-1, 1], (K, N))).astype(np.int8)
+    x8[0], w8[:, 0] = 127, 127
+    xs = rng.uniform(1e-3, 1e-2, M).astype(np.float32)
+    ws = rng.uniform(1e-3, 1e-2, N).astype(np.float32)
+    acc = x8.astype(np.int64) @ w8.astype(np.int64)
+    assert acc[0, 0] == K * 127 ** 2 > 2 ** 24
+    assert (np.abs(acc) > 2 ** 24).any() and (acc % 4 != 0).any()
+    got = w8a8_matmul(*(torch.from_numpy(a) for a in (x8, w8, xs, ws)),
+                      out_dtype=getattr(torch, out))
+    want = w8a8_matmul_pallas(*(jnp.asarray(a) for a in (x8, w8, xs, ws)),
+                              block_m=8, block_n=16, block_k=512,
+                              out_dtype=getattr(jnp, out), interpret=True)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
 def test_int8_matmuls_keep_leading_batch_dims():
     rng = np.random.default_rng(4)
     x = rand(rng, 2, 9, 48)
