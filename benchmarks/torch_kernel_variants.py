@@ -4,6 +4,8 @@ card, each held against the kernel's plain PyTorch version.
 
     python3 benchmarks/torch_kernel_variants.py --set w8a8 --parent DIR
     python3 benchmarks/torch_kernel_variants.py --set rmsnorm --parent DIR
+    python3 benchmarks/torch_kernel_variants.py --set attention_fp32 --parent DIR
+    python3 benchmarks/torch_kernel_variants.py --set ssm_scan --parent DIR
 
 A variant is a source file under ``src/repro_torch/csrc`` (this tree's, or
 the parent tree's unpacked at ``--parent``) with literal substitutions
@@ -15,7 +17,9 @@ variants run in turns (in order, then in reverse), each time the median of
 ``chip_smoke.py`` times kernels.  One JSON line a shape: each variant's two
 times in ms and whether it matched the plain version (bit for bit for
 w8a8_matmul; within rmsnorm's limits, 1e-4 / 2e-2 of the largest output in
-fp32 / bf16).  Needs a card; exits non-zero without one.
+fp32 / bf16; fp32 attention within 1e-4 with zero rows where kv_len is 0;
+the scan's y and h within 1e-4 of their largest magnitudes).  Needs a
+card; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 CSRC = os.path.join("src", "repro_torch", "csrc")
 QM, RN = "quant_matmul.cu", "rmsnorm.cu"
+FA, SS = "flash_attention.cu", "ssm_scan.cu"
 
 # name -> (source file, substitutions, from the parent tree)
 SETS = {
@@ -64,7 +69,42 @@ SETS = {
         "two_warps_a_row": (RN, [("  int tpr = 32;\n", "  int tpr = 64;\n")],
                             False),
     },
+    # fp32 attention through the exact bf16 split (the parent's is the
+    # CUDA-core kernel)
+    "attention_fp32": {
+        "parent": (FA, [], True),
+        "tree": (FA, [], False),
+        "keys_64": (FA, [("static constexpr int BK = 32, STAGES = 1, "
+                          "TERMS = 3;",
+                          "static constexpr int BK = 64, STAGES = 1, "
+                          "TERMS = 3;")], False),
+        # each k-step's products added straight into the running sums
+        "one_accumulator": (FA, [("constexpr bool FRESH = SPLIT;",
+                                  "constexpr bool FRESH = false;")], False),
+        "3_blocks_an_sm": (FA, [(
+            "TERMS * Q_PLANE;\n"
+            "  static constexpr int MIN_BLOCKS = HD <= 64 ? 4 : 2;",
+            "TERMS * Q_PLANE;\n"
+            "  static constexpr int MIN_BLOCKS = HD <= 64 ? 3 : 2;")], False),
+    },
+    "ssm_scan": {
+        "parent": (SS, [], True),
+        "tree": (SS, [], False),
+        "chunk_8": (SS, [("constexpr int CHUNK = 16; ",
+                          "constexpr int CHUNK = 8; ")], False),
+        # the accurate expf (range reduction on the FMA pipe) for ex2
+        "expf": (SS, [("\n                        * LOG2E\n", "\n"),
+                      ("ex2(dtv * a[j])", "expf(dtv * a[j])")], False),
+    },
 }
+
+
+# lanes a channel the tree's scan is also timed under, beside the router's
+# own choice (ssm_scan.ops.scan_lanes)
+SSM_LANES = (2, 8)
+# the parent's entry point, before the scan took its lanes
+PARENT_SIGNATURES = {"windve_ssm_scan": [ctypes.c_void_p] * 7
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
 
 
 def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
@@ -84,7 +124,7 @@ def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
             f.write(text)
         so = os.path.join(out_dir, f"{name}.so")
         cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-               cu, "-o", so]
+               "-I", os.path.join(base, CSRC), cu, "-o", so]
         procs.append((name, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -96,7 +136,10 @@ def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
             if proc.returncode:
                 raise SystemExit(f"nvcc failed on {name}:\n{text[-3000:]}")
             lib = ctypes.CDLL(os.path.abspath(so))
-            for fn, argtypes in build.SIGNATURES.items():
+            sigs = dict(build.SIGNATURES)
+            if variants[name][2]:
+                sigs.update(PARENT_SIGNATURES)
+            for fn, argtypes in sigs.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
                     getattr(lib, fn).restype = ctypes.c_int
@@ -129,7 +172,8 @@ def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
 
 def in_turns(libs: dict, launch, check) -> dict:
     """Each variant's two times (in order, then in reverse) and whether
-    ``check`` held after its first launch."""
+    ``check`` held after its first launch.  ``libs``: name -> what
+    ``launch`` takes (a variant's library, or a runner)."""
     import torch
 
     names = list(libs)
@@ -211,6 +255,99 @@ def rmsnorm_shapes(libs: dict) -> None:
                               "dtype": str(dt), **res}), flush=True)
 
 
+def attention_fp32_shapes(libs: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    stream = torch.cuda.current_stream().cuda_stream
+    # bge-large-zh-v1.5 at B 16 x S 96 with ragged rows; hymba-1.5b's
+    # prefill (causal, window 1024, 25 heads on 5) at 64 tokens and at the
+    # 1100-token prompt; (B, S, heads, hd) projections seen as (B, heads,
+    # S, hd), as models.layers passes them
+    for B, H, KV, S, causal, win, kv_len in (
+            (16, 16, 16, 96, False, 0, [96, 75, 0, 48] * 4),
+            (16, 25, 5, 64, True, 1024, [64] * 16),
+            (2, 25, 5, 1100, True, 1024, [1100] * 2)):
+        hd = 64
+        rng = np.random.default_rng(0)
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, S, n, hd),
+                                                        np.float32))
+                   .cuda().transpose(1, 2) for n in (H, KV, KV))
+        kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        kw = dict(causal=causal, window=win, kv_len=kvl)
+        want = attention_ref(q, k, v, **kw)
+        out = torch.empty((B, S, H, hd), device="cuda").transpose(1, 2)
+        empty = kvl == 0
+        res = in_turns(
+            libs,
+            lambda lib: lib.windve_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
+                out.data_ptr(), 0, B, H, KV, S, S, hd, *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                int(causal), win, stream),
+            lambda: ((out - want).abs().max().item() <= 1e-4
+                     and bool((out[empty] == 0).all())))
+        print(json.dumps({"kernel": "flash_attention", "B": B, "H": H,
+                          "KV": KV, "S": S, "dtype": "float32", **res}),
+              flush=True)
+
+
+def ssm_scan_shapes(libs: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssm_scan import scan_lanes, ssm_scan_ref
+
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # hymba-1.5b's prefill scan (B 16 x S 64, d_inner 3200), a small
+    # off-tile one and the 1100-token prompt at B 2
+    for B, S, DI, dt in ((16, 64, 3200, torch.bfloat16),
+                         (16, 64, 3200, torch.float32),
+                         (2, 50, 200, torch.bfloat16),
+                         (2, 1100, 3200, torch.bfloat16),
+                         (2, 1100, 3200, torch.float32)):
+        N = 16
+        rng = np.random.default_rng(6)
+        x = torch.from_numpy(rng.standard_normal((B, S, DI), np.float32)
+                             ).cuda().to(dt)
+        dtv = torch.from_numpy(np.log1p(np.exp(rng.standard_normal(
+            (B, S, DI)))).astype(np.float32)).cuda()
+        Bm, Cm = (torch.from_numpy(rng.standard_normal((B, S, N), np.float32)
+                                   ).cuda() for _ in range(2))
+        A = torch.from_numpy(-np.broadcast_to(
+            np.arange(1, N + 1, dtype=np.float32), (DI, N)).copy()).cuda()
+        y_ref, h_ref = ssm_scan_ref(x, dtv, Bm, Cm, A)
+        y = torch.empty((B, S, DI), device="cuda")
+        h = torch.empty((B, DI, N), device="cuda")
+        code = 0 if dt == torch.float32 else 1
+        args = (x.data_ptr(), dtv.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                A.data_ptr(), y.data_ptr(), h.data_ptr(), code, B, S, DI)
+
+        def run(lib, lanes=None):
+            if lanes is None:                # the parent's entry point
+                return lambda: lib.windve_ssm_scan(*args, stream)
+            return lambda: lib.windve_ssm_scan(*args, lanes, stream)
+
+        lanes = scan_lanes(B, DI, sms)
+        runs = {name: run(lib, None if name == "parent" else lanes)
+                for name, lib in libs.items()}
+        for n in SSM_LANES:
+            runs[f"tree_lanes{n}"] = run(libs["tree"], n)
+
+        def close():
+            return all((a - b).abs().max().item()
+                       <= 1e-4 * b.abs().max().item()
+                       for a, b in ((y, y_ref), (h, h_ref)))
+
+        res = in_turns(runs, lambda fn: fn(), close)
+        print(json.dumps({"kernel": "ssm_scan", "B": B, "S": S, "DI": DI,
+                          "x_dtype": str(dt), "lanes": lanes, **res}),
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--set", choices=sorted(SETS), required=True)
@@ -226,7 +363,9 @@ def main() -> int:
         return 2
     libs = build_variants(SETS[args.set], args.parent,
                           os.path.join(args.out, args.set))
-    {"w8a8": w8a8_shapes, "rmsnorm": rmsnorm_shapes}[args.set](libs)
+    {"w8a8": w8a8_shapes, "rmsnorm": rmsnorm_shapes,
+     "attention_fp32": attention_fp32_shapes,
+     "ssm_scan": ssm_scan_shapes}[args.set](libs)
     return 0
 
 

@@ -9,18 +9,21 @@ Phases, each printing one JSON line; any failed phase makes the script exit
 non-zero:
 
   build    compile src/repro_torch/csrc/*.cu with nvcc for sm_90a (one nvcc
-           per source, all started together) into one library.
+           per source, all started together) into one library; ptxas's
+           report (registers, spills, shared memory) goes to --ptxas-log.
   kernels  each kernel against its plain PyTorch version on the same inputs
            on the card, with its time, the plain version's, one PyTorch
            library call's (a yardstick the port never calls) and the bound.
            The summary's flash_attention, pool_norm, quant_matmul,
-           w8a8_matmul, rmsnorm and flash_decode rows also carry a `cases`
-           map: bf16 attention at bge's and hymba's prefill shapes, mean
-           pooling in fp32 and bf16, the three bge projections in fp32 and
-           w_in in bf16 (weight-only and W8A8), rmsnorm at hymba's prefill
-           and decode rows in fp32 and bf16, and decode attention at the
-           served shape in the three (q, cache) pairs, on a 1024-slot ring
-           and at starcoder2-7b's G 9 x hd 128.
+           w8a8_matmul, rmsnorm, ssm_scan and flash_decode rows also carry
+           a `cases` map: attention in fp32 and bf16 at bge's and hymba's
+           prefill shapes (S 64 and the 1100-token prompt), mean pooling in
+           fp32 and bf16, the three bge projections in fp32 and w_in in
+           bf16 (weight-only and W8A8), rmsnorm at hymba's prefill and
+           decode rows in fp32 and bf16, the scan at hymba's prefill and at
+           the 1100-token prompt with bf16 and fp32 x, and decode attention
+           at the served shape in the three (q, cache) pairs, on a
+           1024-slot ring and at starcoder2-7b's G 9 x hd 128.
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
            vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
@@ -74,6 +77,8 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # fp32 outside the tensor cores
               "bfloat16": 989e12,    # dense bf16 tensor cores
               "int8": 1979e12}       # dense int8 tensor cores
+SFU_PER_CLOCK = 16                   # MUFU.EX2 results a clock an SM (sm_90)
+H100_SMS, H100_MAX_SM_MHZ = 132, 1980  # data sheet, where no card is read
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 PN_SOURCE = "src/repro_torch/csrc/pool_norm.cu"
 QM_SOURCE = "src/repro_torch/csrc/quant_matmul.cu"
@@ -160,6 +165,30 @@ def bound(nbytes: float, flops: float, dtype_name: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def sm_clock_mhz() -> tuple:
+    """(the card's maximum SM clock in MHz, where it came from)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout.split()
+        return float(out[0]), "nvidia-smi clocks.max.sm"
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        return float(H100_MAX_SM_MHZ), "H100 SXM data sheet"
+
+
+def sfu_rate(dev) -> dict:
+    """Special-function results (exp2) a second: SMs x 16 a clock x the
+    maximum SM clock, read from the card."""
+    import torch
+
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    mhz, source = sm_clock_mhz()
+    return {"sms": sms, "sm_clock_mhz": mhz, "sm_clock_source": source,
+            "per_s": sms * SFU_PER_CLOCK * mhz * 1e6}
+
+
 def dtype_name(dt) -> str:
     return str(dt).replace("torch.", "")
 
@@ -175,8 +204,9 @@ def phase_build(args) -> dict:
     build.load(verbose=True)
     info = dict(build.last_build)
     log = info.pop("log", "")
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "ptxas.log"), "w") as f:
+    path = os.path.join(ROOT, args.ptxas_log)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
         f.write(log)
     lines = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
@@ -234,7 +264,14 @@ def attention_case(dev, B, H, KV, S, hd, dt, kv_len, *, causal=False,
     nbytes = ((H * q_rows + B * H * S + 2 * KV * kv_rows) * hd * esize
               + 4 * B)
     flops = 4 * hd * H * int(mask.sum().item())   # QK^T and PV, valid pairs
-    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, dtype_name(dt))
+    if dt == torch.float32:
+        # fp32 runs on the bf16 tensor cores as six products of its exact
+        # three-term split; the CUDA cores' fp32 rate is given beside it
+        out["bound_ms"], out["bound_by"] = bound(nbytes, 6 * flops,
+                                                 "bfloat16")
+        out["bound_cuda_core_ms"] = bound(nbytes, flops, "float32")[0]
+    else:
+        out["bound_ms"], out["bound_by"] = bound(nbytes, flops, "bfloat16")
     out["kernel_ms"] = time_ms(lambda: flash_attention(q, k, v, **kw), dev)
     out["plain_ms"] = time_ms(lambda: attention_ref(q, k, v, **kw), dev)
     lib_mask = mask[:, None]
@@ -451,9 +488,10 @@ def rmsnorm_case(dev, R, D, dt) -> dict:
     return out
 
 
-def ssm_case(dev, B, S, DI, N, dt) -> dict:
+def ssm_case(dev, B, S, DI, N, dt, sfu) -> dict:
     """The selective scan from a zero state; y and h are fp32 on both
-    sides, so the limit is fp32's for either x dtype."""
+    sides, so the limit is fp32's for either x dtype.  ``sfu``: the card's
+    exp2 rate (``sfu_rate``)."""
     import numpy as np
     import torch
 
@@ -476,14 +514,27 @@ def ssm_case(dev, B, S, DI, N, dt) -> dict:
            "max_abs_err": max(ey, eh), "y_err": ey, "y_tol": 1e-4 * my,
            "h_err": eh, "h_tol": 1e-4 * mh,
            "ok": ey <= 1e-4 * my and eh <= 1e-4 * mh}
-    # x, dt and y stream once; B and C once; A; h written once.  Seven
-    # flops (one an exp) a (b, t, d, n) and one a (b, t, d)
+    # x, dt and y stream once; B and C once; A; h written once.  A (b, t,
+    # d, n) takes one exp on the SFU and six fp32 flops (dt * A, h's FMA,
+    # dx * B, the FMA with C); a (b, t, d) one more (dt * x).  The bound is
+    # the largest of the three times.
     nbytes = (B * S * DI * (x.element_size() + 8) + 8 * B * S * N
               + 4 * DI * N + 4 * B * DI * N)
-    out["bound_ms"], out["bound_by"] = bound(nbytes, B * S * DI * (7 * N + 1),
-                                             "float32")
+    terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fma_ms": B * S * DI * (6 * N + 1) / PEAK_FLOPS["float32"] * 1e3,
+             "sfu_ms": B * S * DI * N / sfu["per_s"] * 1e3}
+    out["bound_ms"] = max(terms.values())
+    out["bound_by"] = ("bytes" if terms["bytes_ms"] == out["bound_ms"]
+                       else "operations")
+    out["bound_terms"] = {**terms, "sms": sfu["sms"],
+                          "sm_clock_mhz": sfu["sm_clock_mhz"],
+                          "sm_clock_source": sfu["sm_clock_source"]}
     out["kernel_ms"] = time_ms(lambda: ssm_scan(x, dtv, Bm, Cm, A), dev)
-    out["plain_ms"] = time_ms(lambda: ssm_scan_ref(x, dtv, Bm, Cm, A), dev)
+    # the plain version runs S steps of small ops: fewer repetitions at a
+    # long S
+    few = {"reps": 3, "inner": 2} if S > 256 else {}
+    out["plain_ms"] = time_ms(lambda: ssm_scan_ref(x, dtv, Bm, Cm, A), dev,
+                              **few)
     out["library_ms"] = None       # no one PyTorch call runs the scan
     return out
 
@@ -562,7 +613,7 @@ def phase_kernels(args, dev) -> dict:
         lens = [min(n, s) if n else 0 for n in ragged]
         for dt in (f32, bf16):
             attn.append(attention_case(dev, B, H, H, s, hd, dt, lens))
-    attn_cases["bge_bf16"] = attn[-1]
+    attn_cases["bge_fp32"], attn_cases["bge_bf16"] = attn[-2:]
     # ragged tiles: an S that is not a multiple of the 64-key tile, a
     # window that ends mid-tile, hd 32 and 128, GQA G = 2 and 4
     for dt in (f32, bf16):
@@ -577,11 +628,11 @@ def phase_kernels(args, dev) -> dict:
     lm_attn = (((LM_B, LM_PROMPT), (2, LONG_PROMPT), 25, LM_KV, LM_HD, 1024)
                if t else ((2, 24), (1, 40), 4, 2, 16, 16))
     *shapes, H_lm, KV_lm, hd_lm, win = lm_attn
-    for (b, s), tag in zip(shapes, ("hymba_S64_bf16", "hymba_S1100_bf16")):
+    for (b, s), tag in zip(shapes, ("hymba_S64", "hymba_S1100")):
         for dt in (f32, bf16):
             attn.append(attention_case(dev, b, H_lm, KV_lm, s, hd_lm, dt,
                                        [s] * b, causal=True, window=win))
-        attn_cases[tag] = attn[-1]
+        attn_cases[f"{tag}_fp32"], attn_cases[f"{tag}_bf16"] = attn[-2:]
     pools = [pool_case(dev, B, S, D, dt, pool, ragged)
              for pool in ("cls", "mean") for dt in (f32, bf16)]
     pool_cases = {f"mean_{c['dtype']}": c for c in pools
@@ -606,8 +657,11 @@ def phase_kernels(args, dev) -> dict:
     Bl, Sl, Sc = (LM_B, LM_PROMPT, LM_PROMPT + LM_NEW) if t else (2, 24, 28)
     rms = [rmsnorm_case(dev, r, d, dt) for r, d in
            ((Bl * Sl, D), (Bl, D), (7, 77)) for dt in (f32, bf16)]
-    ssm = [ssm_case(dev, b, s, di, LM_N, dt) for b, s, di in
-           ((Bl, Sl, DI), (2, 50, 200)) for dt in (bf16, f32)]
+    # the prefill's scan, a small off-tile one, and the 1100-token prompt
+    sfu = sfu_rate(dev)
+    ssm = [ssm_case(dev, b, s, di, LM_N, dt, sfu) for b, s, di in
+           ((Bl, Sl, DI), (2, 50, 200), (2, LONG_PROMPT if t else 40, DI))
+           for dt in (bf16, f32)]
     ring = 1024 if t else 16
     fd = [flash_decode_case(dev, Bl, KV, G, hd, Sc, Sc - 1, ring, bf16, f32),
           flash_decode_case(dev, Bl, KV, G, hd, Sc, Sc - 1, ring, f32, f32),
@@ -663,6 +717,12 @@ def phase_kernels(args, dev) -> dict:
                       "rmsnorm": {
                           "prefill_float32": rms[0], "prefill_bfloat16": rms[1],
                           "decode_float32": rms[2], "decode_bfloat16": rms[3]},
+                      "ssm_scan": {
+                          "prefill_bfloat16": ssm[0], "prefill_float32": ssm[1],
+                          "B2_S50_DI200_bfloat16": ssm[2],
+                          "B2_S50_DI200_float32": ssm[3],
+                          "long_prompt_bfloat16": ssm[4],
+                          "long_prompt_float32": ssm[5]},
                       "flash_decode": {
                           "served_q_bf16_cache_f32": fd[0],
                           "served_q_f32_cache_f32": fd[1],
@@ -1151,7 +1211,9 @@ def kernel_summary(main: dict, by_path: dict) -> dict:
     """One row a kernel: its case at the main path's shape, and its
     launches on the main paths (``by_path``: path -> launch counts)."""
     rows = []
-    keys = ("kernel_ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")
+    keys = ("kernel_ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "max_abs_err")
+    extra = ("bound_cuda_core_ms",)      # fp32 attention's CUDA-core figure
     for name, source, replaces in KERNELS:
         c = main[name]
         per_path = {path: counts.get(name, 0)
@@ -1164,7 +1226,8 @@ def kernel_summary(main: dict, by_path: dict) -> dict:
                "bound_by": c["bound_by"], "library_ms": c.get("library_ms")}
         cases = main.get("cases", {}).get(name)
         if cases:
-            row["cases"] = {tag: {k: case.get(k) for k in keys}
+            row["cases"] = {tag: {**{k: case.get(k) for k in keys},
+                                  **{k: case[k] for k in extra if k in case}}
                             for tag, case in cases.items()}
         rows.append(row)
     return {"kernels": rows}
@@ -1173,6 +1236,9 @@ def kernel_summary(main: dict, by_path: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--ptxas-log", default=os.path.join("build", "ptxas.log"),
+                    help="where the build phase writes ptxas's report "
+                         "(relative to the repo root)")
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at smoke size (plain "
                          "versions, no build); never prints a result")

@@ -17,42 +17,28 @@
 //
 // What bounds it on this card.  At the main paths' shapes the work is small:
 // bge (B 16, 16 heads, S 96, hd 64) needs 4 * H * hd flops for each valid
-// (query, key) pair, 0.34 GFLOP, over 9 MB of q, k, v and o in bf16; hymba's
-// prefill (25 heads on 5 KV heads, causal, window 1024) needs 0.2 GFLOP at
-// S 64 and 7.7 GFLOP at S 1100.  So the bound is the memory traffic, except
-// at S 1100, where it is the multiply rate: 0.115 ms at fp32's 67 TFLOP/s
-// off the tensor cores, 0.0078 ms at bf16's 989 TFLOP/s on them.  A design
-// that widens bf16 to fp32 in shared memory, finishes each key's dot
-// product with warp shuffles and runs QK^T and PV as FMAs is bound by
-// instructions and latency at bge's shapes and by the CUDA cores' rate at
-// S 1100, so bf16 gets a design of its own.
+// (query, key) pair, 0.34 GFLOP, over 9 MB of q, k, v and o in bf16 (18 MB
+// in fp32); hymba's prefill (25 heads on 5 KV heads, causal, window 1024)
+// needs 0.2 GFLOP at S 64 and 7.7 GFLOP at S 1100.  So the bound is the
+// memory traffic, except at S 1100, where it is the multiply rate: 0.0078 ms
+// at bf16's 989 TFLOP/s on the tensor cores, and 0.047 ms for fp32's six
+// bf16 products a product (below).  On the CUDA cores fp32 would take
+// 0.115 ms at 67 TFLOP/s, and a design that finishes each key's dot product
+// with warp shuffles and runs QK^T and PV as FMAs is bound by instructions
+// and latency long before that, so both dtypes run on the tensor cores.
 //
-// Two designs, one a dtype:
-//
-// fp32 (dtype 0), on the CUDA cores: one thread block per (64-query tile,
-// head, batch row); the TPU grid's sequential key axis becomes a loop over
-// 32-key tiles staged in shared memory as fp32.  Four threads share a query
-// row; thread `sub` holds dims sub, sub + 4, ... of q and of the
-// accumulator and the dot product is finished with two warp shuffles.  It
-// stays off the tensor cores: fp32 serving is held to 1e-5 of the golden
-// vectors and TF32 keeps about three digits.
-//
-// bf16 (dtype 1), on the tensor cores with mma.sync.m16n8k16 (bf16 in, fp32
-// accumulators in registers).  The same blocks: 4 warps own a (64-query
-// tile, head, batch row), one warp 16 rows, so bge's 512 blocks, hymba
-// S 64's 400 and S 1100's 900 fill the 132 SMs.  mma.sync rather than
-// wgmma: wgmma wants a 64-row warpgroup tile fed from shared memory in its
-// own swizzled layout and pays off on long key loops; here a block sees
-// one or two key tiles at bge's and hymba S 64's shapes, and mma.sync lets
-// P stay in registers, the score fragment's layout being the A operand's.
-//   - q, k and v tiles of 64 rows are staged in shared memory in bf16 with
-//     16-byte cp.async copies, taken row by row from the strided
-//     (B, S, heads, hd) views (no transpose copy); rows are padded by 16
-//     bytes so ldmatrix reads hit distinct banks.  Two stages: the next
-//     key tile loads while this one computes.  Views that are not 16-byte
-//     aligned go to an instantiation that copies element by element.
-//   - S = Q K^T: Q's A fragments are read once with ldmatrix, K's B
-//     fragments with ldmatrix; O += P V reads V with ldmatrix.trans.
+// One kernel, flash_attention_tc<T, HD, VEC>, on mma.sync.m16n8k16 (bf16
+// in, fp32 accumulators in registers).  4 warps own a (64-query tile, head,
+// batch row), one warp 16 rows, so bge's 512 blocks, hymba S 64's 400 and
+// S 1100's 900 fill the 132 SMs.  mma.sync rather than wgmma: wgmma wants a
+// 64-row warpgroup tile fed from shared memory in its own swizzled layout
+// and pays off on long key loops; here a block sees one to three key tiles
+// at bge's and hymba S 64's shapes, and mma.sync lets P stay in registers,
+// the score fragment's layout being the A operand's.
+//   - S = Q K^T: Q's A fragments are held in registers for the whole key
+//     loop, K's B fragments are read with ldmatrix from key tiles staged in
+//     shared memory; O += P V reads V with ldmatrix.trans.  Staged rows are
+//     padded by 16 bytes so ldmatrix reads hit distinct banks.
 //   - Masks (kv_len, causal, window) are applied to the score fragment as
 //     -inf, only on tiles that cross a boundary; a warp skips a tile its 16
 //     rows cannot see.  Keys past kv_len are zero-filled in shared memory.
@@ -61,196 +47,106 @@
 //     log2(e) / sqrt(hd): one FFMA and one SFU ex2 a score.  The max is
 //     reduced across the 4 threads that hold a row once a tile, the
 //     denominator once at the end.
-//   - P is rounded to bf16 before PV, as the TPU kernel's p.astype(v.dtype),
-//     while the denominator sums the unrounded fp32 p.
 //   - GQA: query head h reads KV head h / G for any G dividing H.
-//   - Head dims 16, 32, 64 and 128; hd 128 takes 85 KB of dynamic shared
-//     memory, above the default 48 KB, after cudaFuncSetAttribute.
+//   - Head dims 16, 32, 64 and 128; tiles above 48 KB of shared memory take
+//     it as dynamic shared memory after cudaFuncSetAttribute.
 //   - Launch bounds of four blocks an SM at hd <= 64 (128 registers a
 //     thread), so bge's 512 blocks and hymba S 64's 400 run in one wave.
 //     The grid is one-dimensional, query tiles slowest and last first, so
 //     under a causal mask the blocks that see the most keys start first.
-//   What bounds it then: at S 1100 about 140 TFLOP/s of valid products, a
-//   seventh of the bf16 peak; the 4 warps of a block meet at two barriers
-//   a key tile, and each tile's softmax (64 ex2 a row) waits on its scores,
-//   so latency, not a pipe, sets the time.  At bge's and S 64's shapes a
-//   block sees one or two key tiles, and the launch and the first tile's
-//   load dominate (about 4x the bytes bound).
+//   - Views that are not 16-byte aligned go to an instantiation (VEC false)
+//     that copies element by element.
+//
+// bf16 (dtype 1): q, k and v tiles of 64 rows are staged as they lie with
+// 16-byte cp.async copies, taken row by row from the strided (B, S, heads,
+// hd) views (no transpose copy).  Two stages: the next key tile loads while
+// this one computes.  P is rounded to bf16 before PV, as the TPU kernel's
+// p.astype(v.dtype), while the denominator sums the unrounded fp32 p.
+// What bounds it: at S 1100 about 140 TFLOP/s of valid products, a seventh
+// of the bf16 peak; the 4 warps of a block meet at two barriers a key tile,
+// and each tile's softmax waits on its scores, so latency, not a pipe, sets
+// the time.  At bge's and S 64's shapes the launch and the first tile's
+// load dominate (about 4x the bytes bound).
+//
+// fp32 (dtype 0), through an exact bf16 split.  fp32 serving is held to 1e-5
+// of the golden vectors, so neither bf16 nor TF32 (about three digits) may
+// stand in for fp32.  Every fp32 operand x is instead the exact sum h + m + l
+// of three bf16 values (h is x truncated to bf16, m the truncation of x - h,
+// l what is left: each difference is exact in fp32 and l has at most 8
+// significant bits), and a bf16 x bf16 product is exact in fp32.  So Q K^T
+// and P V each take six products a k-step into the fp32 accumulators, small
+// to large: l*h, h*l, m*m, m*h, h*m, h*h.  The three dropped ones (m*l, l*m,
+// l*l) are below 2^-23 of the product, the rounding of an fp32 FMA, as in
+// csrc/quant_matmul.cu's split of x.
+//   - The q tile and k and v tiles of 32 keys are loaded with 16-byte reads
+//     (all of a tile's loads issued before the first split), split in
+//     registers and stored as three bf16 planes each, in the layout the
+//     bf16 path's ldmatrix reads; q's planes are read again each k-step,
+//     which keeps 48 registers free (55 KB of shared memory a block at hd
+//     64, four blocks an SM).  One k/v stage: at the main paths' shapes a
+//     block sees one to three key tiles, and the 4 blocks an SM hide each
+//     other's loads.
+//   - P is split in registers from the score fragment; the denominator sums
+//     the fp32 p, which the three terms carry exactly.
+//   - The tensor cores add into an fp32 accumulator with truncation, not
+//     rounding, so 24 products (six a k-step, four k-steps) added straight
+//     into a score bias it by up to 24 units in its last place.  Each
+//     k-step's six products (and each 16-key step's in PV) go to a fresh
+//     fragment instead, which is added to the running sum with fp32 adds.
+//   - The output is written in fp32, 8 bytes a store.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BQ = 64;             // queries per block
-constexpr int BK = 32;             // keys per shared-memory tile
-constexpr int TPR = 4;             // threads per query row
-constexpr int THREADS = BQ * TPR;
-constexpr float NEG = -1e30f;      // initial running max, as in the TPU kernel
+typedef __nv_bfloat16 bf16;
 
 struct Strides {
   long long b, h, s;
 };
 
-// the SIMT kernel's element conversions (instantiated for fp32 only)
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// P as the PV product sees it: rounded to the value type.
-template <typename T>
-__device__ __forceinline__ float p_round(float p) {
-  return to_f(from_f<T>(p));
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
-                       const int* __restrict__ kv_len, T* __restrict__ o,
-                       int G, int Sq, int Sk, Strides qs, Strides ks,
-                       Strides vs, Strides os, float scale, int causal,
-                       int window) {
-  constexpr int DPT = HD / TPR;    // dims per thread
-  __shared__ float k_tile[BK][HD];
-  __shared__ float v_tile[BK][HD];
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int row = threadIdx.x / TPR, sub = threadIdx.x % TPR;
-  const int qi = q0 + row;
-  const bool q_ok = qi < Sq;
-
-  float qr[DPT], acc[DPT];
-  const T* qp = q + b * qs.b + h * qs.h + (long long)qi * qs.s;
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    qr[i] = q_ok ? to_f(qp[sub + TPR * i]) : 0.f;
-    acc[i] = 0.f;
-  }
-
-  const int kend = min(max(kv_len[b], 0), Sk);
-  int lo = 0, hi = kend;
-  if (causal) hi = min(hi, q0 + BQ);          // keys <= the tile's last query
-  if (window) lo = max(0, q0 - window + 1);   // keys > first query - window
-  lo = (lo / BK) * BK;
-
-  const T* kb = k + b * ks.b + (h / G) * ks.h;
-  const T* vb = v + b * vs.b + (h / G) * vs.h;
-  float m = NEG, den = 0.f;
-  for (int t0 = lo; t0 < hi; t0 += BK) {
-    __syncthreads();                 // the previous tile is fully consumed
-    for (int idx = threadIdx.x; idx < BK * HD; idx += THREADS) {
-      const int j = idx / HD, d = idx % HD, key = t0 + j;
-      const bool ok = key < kend;
-      k_tile[j][d] = ok ? to_f(kb[key * ks.s + d]) : 0.f;
-      v_tile[j][d] = ok ? to_f(vb[key * vs.s + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[BK];
-    float tmax = NEG;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) dot += qr[i] * k_tile[j][sub + TPR * i];
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int key = t0 + j;
-      bool ok = key < kend;
-      if (causal) ok = ok && key <= qi;
-      if (window) ok = ok && key > qi - window;
-      s[j] = ok ? dot * scale : -INFINITY;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float corr = expf(m - m_new);
-    den *= corr;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= corr;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - m_new);   // exactly 0 for a masked key
-      den += p;
-      const float pv = p_round<T>(p);
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] += pv * v_tile[j][sub + TPR * i];
-    }
-    m = m_new;
-  }
-
-  if (q_ok) {
-    T* op = o + b * os.b + h * os.h + (long long)qi * os.s;
-    const float d = fmaxf(den, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) op[sub + TPR * i] = from_f<T>(acc[i] / d);
-  }
-}
-
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* kv_len, void* o, int B, int H, int KV, int Sq,
-                   int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-                   int causal, int window, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, HD><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(kv_len),
-      static_cast<T*>(o), H / KV, Sq, Sk, qs, ks, vs, os,
-      1.0f / sqrtf(static_cast<float>(HD)), causal, window);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        const void* kv_len, void* o, int B, int H, int KV,
-                        int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-                        Strides os, int causal, int window,
-                        cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
-                           os, causal, window, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
-                           os, causal, window, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
-                           os, causal, window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
-                            os, causal, window, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-namespace tc {
-
-typedef __nv_bfloat16 bf16;
-
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int BQ = 16 * WARPS;     // queries per block, 16 a warp
-constexpr int BK = 64;             // keys per shared-memory tile
-constexpr int STAGES = 2;          // key tiles in flight
 constexpr int PAD = 8;             // bf16 a row: ldmatrix rows on distinct banks
+constexpr float NEG = -1e30f;      // initial running max, as in the TPU kernel
 constexpr float LOG2E = 1.4426950408889634f;
 
+// What each dtype stages in shared memory, in bf16 elements.  A plane is one
+// key tile of one term, BK rows of PITCH.
+template <typename T, int HD>
+struct Tile;
+// bf16: the q tile, then two stages of k tiles and two of v tiles, as they lie
 template <int HD>
-struct Tile {
-  static constexpr int PITCH = HD + PAD;          // elements a staged row
-  static constexpr int ELEMS = BK * PITCH;         // a q, k or v tile (BQ == BK)
-  static constexpr size_t SMEM = (1 + 2 * STAGES) * ELEMS * sizeof(bf16);
+struct Tile<bf16, HD> {
+  static constexpr int BK = 64, STAGES = 2, TERMS = 1;
+  static constexpr int PITCH = HD + PAD;
+  static constexpr int PLANE = BK * PITCH;
+  static constexpr int KV_ELEMS = STAGES * PLANE;  // the k (or v) region
+  static constexpr int Q_ELEMS = BQ * PITCH;
+  static constexpr int MIN_BLOCKS = HD <= 64 ? 4 : 2;
 };
-static_assert(BQ == BK, "q and key tiles share one layout");
+// fp32: the q tile as three planes (h, m, l), read each k-step, then one
+// stage of a k tile and a v tile, each as three planes
+template <int HD>
+struct Tile<float, HD> {
+  static constexpr int BK = 32, STAGES = 1, TERMS = 3;
+  static constexpr int PITCH = HD + PAD;
+  static constexpr int PLANE = BK * PITCH;
+  static constexpr int KV_ELEMS = TERMS * PLANE;
+  static constexpr int Q_PLANE = BQ * PITCH;
+  static constexpr int Q_ELEMS = TERMS * Q_PLANE;
+  static constexpr int MIN_BLOCKS = HD <= 64 ? 4 : 2;
+};
+
+template <typename T, int HD>
+constexpr size_t smem_bytes() {
+  return (Tile<T, HD>::Q_ELEMS + 2 * Tile<T, HD>::KV_ELEMS) * sizeof(bf16);
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -293,29 +189,58 @@ __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 2^x, the SFU's approximation (relative error 2^-22; P is then rounded to
-// bf16's 8 bits)
+// 2^x, the SFU's approximation (relative error 2^-22)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
+// two fp32 values rounded to bf16, lo in the low half
 __device__ __forceinline__ unsigned pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// Stage rows [0, BK) of a tile: row r is HD elements at src + r * stride
-// for r < rows, zeros after.  16-byte cp.async copies when VEC (the view is
-// 16-byte aligned), element copies otherwise.
+// x with its low 16 bits cleared: x truncated to bf16, as an fp32
+__device__ __forceinline__ float bf16_top(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+}
+
+// x = t[0] + t[1] + t[2] exactly, each term a bf16 value: each truncates
+// what the ones before left
+__device__ __forceinline__ void split3(float x, float (&t)[3]) {
+  t[0] = bf16_top(x);
+  const float r = x - t[0];
+  t[1] = bf16_top(r);
+  t[2] = r - t[1];
+}
+
+// two bf16 values held as fp32 (low 16 bits zero), lo in the low half
+__device__ __forceinline__ unsigned pack_exact(float lo, float hi) {
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+}
+
+// The products of a split k-step, small to large, as (A term, B term) with
+// h 0, m 1, l 2: l*h, h*l, m*m, m*h, h*m, h*h.  bf16 takes the last alone.
+__host__ __device__ constexpr int term_a(int i) {
+  return i == 0 ? 2 : (i == 2 || i == 3) ? 1 : 0;
+}
+__host__ __device__ constexpr int term_b(int i) {
+  return i == 1 ? 2 : (i == 2 || i == 4) ? 1 : 0;
+}
+
+// bf16: stage rows [0, BK) of a tile: row r is HD elements at src + r *
+// stride for r < rows, zeros after.  16-byte cp.async copies when VEC (the
+// view is 16-byte aligned), element copies otherwise.
 template <int HD, bool VEC>
 __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
                                       long long stride, int rows) {
+  using C = Tile<bf16, HD>;
   constexpr int CHUNKS = HD / 8;                    // 16 bytes each
-  for (int i = threadIdx.x; i < BK * CHUNKS; i += THREADS) {
+  for (int i = threadIdx.x; i < C::BK * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    bf16* d = dst + r * Tile<HD>::PITCH + c;
+    bf16* d = dst + r * C::PITCH + c;
     if (r >= rows) {
       *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
     } else if (VEC) {
@@ -327,24 +252,77 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
   }
 }
 
-// Blocks an SM should hold: four at hd <= 64 (at most 128 registers a
-// thread) so bge's 512 blocks and hymba S 64's 400 run in one wave on 132
-// SMs; hd 128's 85 KB of shared memory allows two.
-template <int HD, bool VEC>
-__global__ void __launch_bounds__(THREADS, HD <= 64 ? 4 : 2)
-flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const int* __restrict__ kv_len,
-                   bf16* __restrict__ o, int B, int H, int G, int Sq, int Sk,
+// fp32: rows [0, ROWS) of NS tiles (row r of tile w is HD floats at src[w] +
+// r * stride[w] for r < rows, zeros after), each stored as its three bf16
+// planes of ROWS rows.  Every load is issued before the first split.
+template <int HD, int ROWS, int NS, bool VEC>
+__device__ __forceinline__ void stage_split(bf16* const (&dst)[NS],
+                                            const float* const (&src)[NS],
+                                            const long long (&stride)[NS],
+                                            int rows) {
+  constexpr int PITCH = HD + PAD, PLANE = ROWS * PITCH;
+  constexpr int CHUNKS = HD / 4;                    // 4 floats each
+  constexpr int PER = ROWS * CHUNKS / THREADS;      // chunks a thread a tile
+  static_assert(ROWS * CHUNKS % THREADS == 0, "whole chunks a thread");
+  float4 x[NS][PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
+#pragma unroll
+    for (int w = 0; w < NS; ++w) {
+      x[w][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows) {
+        const float* p = src[w] + r * stride[w] + c;
+        x[w][u] = VEC ? __ldg(reinterpret_cast<const float4*>(p))
+                      : make_float4(p[0], p[1], p[2], p[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
+#pragma unroll
+    for (int w = 0; w < NS; ++w) {
+      float t[4][3];
+      split3(x[w][u].x, t[0]);
+      split3(x[w][u].y, t[1]);
+      split3(x[w][u].z, t[2]);
+      split3(x[w][u].w, t[3]);
+      bf16* d = dst[w] + r * PITCH + c;
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint2*>(d + p * PLANE) =
+            make_uint2(pack_exact(t[0][p], t[1][p]),
+                       pack_exact(t[2][p], t[3][p]));
+    }
+  }
+}
+
+template <typename T, int HD, bool VEC>
+__global__ void __launch_bounds__(THREADS, Tile<T, HD>::MIN_BLOCKS)
+flash_attention_tc(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ kv_len,
+                   T* __restrict__ o, int B, int H, int G, int Sq, int Sk,
                    Strides qs, Strides ks, Strides vs, Strides os,
                    float scale_log2, int causal, int window) {
-  constexpr int PITCH = Tile<HD>::PITCH, ELEMS = Tile<HD>::ELEMS;
+  using C = Tile<T, HD>;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int BK = C::BK, PITCH = C::PITCH, PLANE = C::PLANE;
+  constexpr int TERMS = C::TERMS;
+  constexpr int FIRST = SPLIT ? 0 : 5;  // the products taken, term_a/b(i)
+  // fp32: each k-step's products go to a fresh fragment, added to the
+  // running sums with fp32 adds (see the header)
+  constexpr bool FRESH = SPLIT;
   constexpr int KSTEPS = HD / 16;     // k-steps of Q K^T
   constexpr int DT = HD / 8;          // 8-wide output column tiles
   constexpr int NT = BK / 8;          // 8-wide key tiles of a score tile
+  static_assert(SPLIT || BQ == BK, "bf16 q and key tiles share one layout");
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + ELEMS;            // STAGES tiles
-  bf16* v_s = k_s + STAGES * ELEMS;   // STAGES tiles
+  bf16* q_s = reinterpret_cast<bf16*>(smem);   // q's tile (fp32: 3 planes)
+  bf16* k_s = q_s + C::Q_ELEMS;
+  bf16* v_s = k_s + C::KV_ELEMS;
 
   // Blocks are handed out in index order, heads fastest, query tiles
   // slowest and last first: under a causal mask the last tiles see the
@@ -365,17 +343,26 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   lo = (lo / BK) * BK;
   const int ntiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
 
-  const bf16* kb = k + b * ks.b + (long long)(h / G) * ks.h;
-  const bf16* vb = v + b * vs.b + (long long)(h / G) * vs.h;
-  if (ntiles > 0) {
-    stage<HD, VEC>(q_s, q + b * qs.b + h * qs.h + (long long)q0 * qs.s, qs.s,
-                   min(BQ, Sq - q0));
-    stage<HD, VEC>(k_s, kb + lo * ks.s, ks.s, min(BK, kend - lo));
-    stage<HD, VEC>(v_s, vb + lo * vs.s, vs.s, min(BK, kend - lo));
+  const T* kb = k + b * ks.b + (long long)(h / G) * ks.h;
+  const T* vb = v + b * vs.b + (long long)(h / G) * vs.h;
+  const T* qh = q + b * qs.b + h * qs.h;
+  unsigned qf[KSTEPS][4];           // bf16: q's fragments, held
+  if constexpr (SPLIT) {
+    if (ntiles > 0) {
+      bf16* const dst[1] = {q_s};
+      const float* const src[1] = {qh + (long long)q0 * qs.s};
+      const long long stride[1] = {qs.s};
+      stage_split<HD, BQ, 1, VEC>(dst, src, stride, min(BQ, Sq - q0));
+    }
+  } else {
+    if (ntiles > 0) {
+      stage<HD, VEC>(q_s, qh + (long long)q0 * qs.s, qs.s, min(BQ, Sq - q0));
+      stage<HD, VEC>(k_s, kb + lo * ks.s, ks.s, min(BK, kend - lo));
+      stage<HD, VEC>(v_s, vb + lo * vs.s, vs.s, min(BK, kend - lo));
+    }
+    cp_async_commit();
   }
-  cp_async_commit();
 
-  unsigned qf[KSTEPS][4];
   float acc[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d)
@@ -386,26 +373,37 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int it = 0; it < ntiles; ++it) {
     const int t0 = lo + it * BK;
-    if (it + 1 < ntiles) {          // the stage it + 1 uses was freed at it - 1
-      const int t1 = t0 + BK, nst = (it + 1) % STAGES;
-      stage<HD, VEC>(k_s + nst * ELEMS, kb + t1 * ks.s, ks.s,
-                     min(BK, kend - t1));
-      stage<HD, VEC>(v_s + nst * ELEMS, vb + t1 * vs.s, vs.s,
-                     min(BK, kend - t1));
-      cp_async_commit();
-      cp_async_wait<1>();
+    const bf16* kt = k_s;
+    const bf16* vt = v_s;
+    if constexpr (SPLIT) {          // the planes were freed at the last barrier
+      bf16* const dst[2] = {k_s, v_s};
+      const float* const src[2] = {kb + t0 * ks.s, vb + t0 * vs.s};
+      const long long stride[2] = {ks.s, vs.s};
+      stage_split<HD, BK, 2, VEC>(dst, src, stride, min(BK, kend - t0));
+      __syncthreads();
     } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (it == 0) {
+      if (it + 1 < ntiles) {        // the stage it + 1 uses was freed at it - 1
+        const int t1 = t0 + BK, nst = (it + 1) % C::STAGES;
+        stage<HD, VEC>(k_s + nst * PLANE, kb + t1 * ks.s, ks.s,
+                       min(BK, kend - t1));
+        stage<HD, VEC>(v_s + nst * PLANE, vb + t1 * vs.s, vs.s,
+                       min(BK, kend - t1));
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldsm_x4(qf[kk], q_s + (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8)
-                                  * PITCH + 16 * kk + (lane >> 4) * 8);
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          ldsm_x4(qf[kk],
+                  q_s + (16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8)
+                            * PITCH + 16 * kk + (lane >> 4) * 8);
+      }
+      kt += (it % C::STAGES) * PLANE;
+      vt += (it % C::STAGES) * PLANE;
     }
-    const bf16* kt = k_s + (it % STAGES) * ELEMS;
-    const bf16* vt = v_s + (it % STAGES) * ELEMS;
     // does any of the warp's 16 rows see a key of this tile?
     const bool seen = w0 < Sq && !(causal && t0 > w0 + 15)
                       && !(window && t0 + BK - 1 <= w0 - window);
@@ -417,13 +415,42 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
+        unsigned qk[TERMS][4];      // this k-step's q fragments
+#pragma unroll
+        for (int p = 0; p < TERMS; ++p) {
+          if constexpr (SPLIT) {
+            ldsm_x4(qk[p], q_s + p * Tile<float, HD>::Q_PLANE
+                               + (16 * warp + (lane & 7)
+                                  + ((lane >> 3) & 1) * 8) * PITCH
+                               + 16 * kk + (lane >> 4) * 8);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qk[p][e] = qf[kk][e];
+          }
+        }
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
-          unsigned bk[4];
-          ldsm_x4(bk, kt + (8 * j + (lane & 7) + (lane >> 4) * 8) * PITCH
-                          + 16 * kk + ((lane >> 3) & 1) * 8);
-          mma(s[j], qf[kk], bk[0], bk[1]);
-          mma(s[j + 1], qf[kk], bk[2], bk[3]);
+          unsigned bk[TERMS][4];
+#pragma unroll
+          for (int p = 0; p < TERMS; ++p)
+            ldsm_x4(bk[p], kt + p * PLANE
+                               + (8 * j + (lane & 7) + (lane >> 4) * 8) * PITCH
+                               + 16 * kk + ((lane >> 3) & 1) * 8);
+          float f[2][4] = {};
+          float(&c0)[4] = FRESH ? f[0] : s[j];
+          float(&c1)[4] = FRESH ? f[1] : s[j + 1];
+#pragma unroll
+          for (int i = FIRST; i < 6; ++i) {
+            mma(c0, qk[term_a(i)], bk[term_b(i)][0], bk[term_b(i)][1]);
+            mma(c1, qk[term_a(i)], bk[term_b(i)][2], bk[term_b(i)][3]);
+          }
+          if constexpr (FRESH) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[j][e] += f[0][e];
+              s[j + 1][e] += f[1][e];
+            }
+          }
         }
       }
       // a tile that crosses kv_len, the diagonal or the window's edge
@@ -455,7 +482,7 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mx1 = fmaxf(mx1, x1);
         }
       }
-      // the 4 threads of a quad hold one row's 64 scores
+      // the 4 threads of a quad hold one row's scores
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
@@ -493,15 +520,47 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float pd1 = ex2(fmaf(sc[3], scale_log2, o1));
         den0 += (pa0 + pa1) + (pc0 + pc1);
         den1 += (pb0 + pb1) + (pd0 + pd1);
-        const unsigned pf[4] = {pack(pa0, pa1), pack(pb0, pb1),
-                                pack(pc0, pc1), pack(pd0, pd1)};
+        unsigned pf[TERMS][4];
+        if constexpr (SPLIT) {      // P's exact split: fp32 p in PV
+          const float pv[8] = {pa0, pa1, pb0, pb1, pc0, pc1, pd0, pd1};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float lo2[3], hi2[3];
+            split3(pv[2 * e], lo2);
+            split3(pv[2 * e + 1], hi2);
+#pragma unroll
+            for (int p = 0; p < 3; ++p) pf[p][e] = pack_exact(lo2[p], hi2[p]);
+          }
+        } else {                    // P rounded to bf16, as the TPU kernel's
+          pf[0][0] = pack(pa0, pa1);
+          pf[0][1] = pack(pb0, pb1);
+          pf[0][2] = pack(pc0, pc1);
+          pf[0][3] = pack(pd0, pd1);
+        }
 #pragma unroll
         for (int d = 0; d < DT; d += 2) {
-          unsigned bv[4];
-          ldsm_x4_trans(bv, vt + (16 * j + (lane & 7) + ((lane >> 3) & 1) * 8)
-                                     * PITCH + 8 * d + (lane >> 4) * 8);
-          mma(acc[d], pf, bv[0], bv[1]);
-          mma(acc[d + 1], pf, bv[2], bv[3]);
+          unsigned bv[TERMS][4];
+#pragma unroll
+          for (int p = 0; p < TERMS; ++p)
+            ldsm_x4_trans(bv[p], vt + p * PLANE
+                                     + (16 * j + (lane & 7)
+                                        + ((lane >> 3) & 1) * 8) * PITCH
+                                     + 8 * d + (lane >> 4) * 8);
+          float f[2][4] = {};
+          float(&c0)[4] = FRESH ? f[0] : acc[d];
+          float(&c1)[4] = FRESH ? f[1] : acc[d + 1];
+#pragma unroll
+          for (int i = FIRST; i < 6; ++i) {
+            mma(c0, pf[term_a(i)], bv[term_b(i)][0], bv[term_b(i)][1]);
+            mma(c1, pf[term_a(i)], bv[term_b(i)][2], bv[term_b(i)][3]);
+          }
+          if constexpr (FRESH) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[d][e] += f[0][e];
+              acc[d + 1][e] += f[1][e];
+            }
+          }
         }
       }
     }
@@ -513,7 +572,7 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   den1 += __shfl_xor_sync(0xffffffffu, den1, 1);
   den1 += __shfl_xor_sync(0xffffffffu, den1, 2);
   const float d0 = fmaxf(den0, 1e-30f), d1 = fmaxf(den1, 1e-30f);
-  bf16* ob = o + b * os.b + h * os.h;
+  T* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
     const int col = 8 * d + 2 * t;
@@ -522,54 +581,64 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int qi = r ? qb : qa;
       if (qi >= Sq) continue;
       const float dd = r ? d1 : d0;
-      const __nv_bfloat162 val = __floats2bfloat162_rn(acc[d][2 * r] / dd,
-                                                       acc[d][2 * r + 1] / dd);
-      bf16* op = ob + (long long)qi * os.s + col;
-      if (VEC) {
-        *reinterpret_cast<__nv_bfloat162*>(op) = val;
+      const float x0 = acc[d][2 * r] / dd, x1 = acc[d][2 * r + 1] / dd;
+      T* op = ob + (long long)qi * os.s + col;
+      if constexpr (SPLIT) {
+        if (VEC) {
+          *reinterpret_cast<float2*>(op) = make_float2(x0, x1);
+        } else {
+          op[0] = x0;
+          op[1] = x1;
+        }
       } else {
-        op[0] = val.x;
-        op[1] = val.y;
+        const __nv_bfloat162 val = __floats2bfloat162_rn(x0, x1);
+        if (VEC) {
+          *reinterpret_cast<__nv_bfloat162*>(op) = val;
+        } else {
+          op[0] = val.x;
+          op[1] = val.y;
+        }
       }
     }
   }
 }
 
-template <int HD, bool VEC>
+template <typename T, int HD, bool VEC>
 cudaError_t launch_as(const void* q, const void* k, const void* v,
                       const void* kv_len, void* o, int B, int H, int KV,
                       int Sq, int Sk, Strides qs, Strides ks, Strides vs,
                       Strides os, int causal, int window,
                       cudaStream_t stream) {
-  constexpr size_t smem = Tile<HD>::SMEM;
+  constexpr size_t smem = smem_bytes<T, HD>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_tc<HD, VEC>,
+        flash_attention_tc<T, HD, VEC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const long long blocks = (long long)((Sq + BQ - 1) / BQ) * H * B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_attention_tc<HD, VEC><<<static_cast<unsigned>(blocks), THREADS, smem,
-                                stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(kv_len),
-      static_cast<bf16*>(o), B, H, H / KV, Sq, Sk, qs, ks, vs, os,
+  flash_attention_tc<T, HD, VEC><<<static_cast<unsigned>(blocks), THREADS,
+                                   smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(kv_len),
+      static_cast<T*>(o), B, H, H / KV, Sq, Sk, qs, ks, vs, os,
       LOG2E / sqrtf(static_cast<float>(HD)), causal, window);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_len, void* o, int B, int H, int KV, int Sq,
                    int Sk, Strides qs, Strides ks, Strides vs, Strides os,
                    int causal, int window, int vec, cudaStream_t stream) {
-  return vec ? launch_as<HD, true>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs,
-                                   ks, vs, os, causal, window, stream)
-             : launch_as<HD, false>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs,
-                                    ks, vs, os, causal, window, stream);
+  return vec ? launch_as<T, HD, true>(q, k, v, kv_len, o, B, H, KV, Sq, Sk,
+                                      qs, ks, vs, os, causal, window, stream)
+             : launch_as<T, HD, false>(q, k, v, kv_len, o, B, H, KV, Sq, Sk,
+                                       qs, ks, vs, os, causal, window, stream);
 }
 
+template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         const void* kv_len, void* o, int B, int H, int KV,
                         int Sq, int Sk, Strides qs, Strides ks, Strides vs,
@@ -577,30 +646,31 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<16>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                        causal, window, vec, stream);
+      return launch<T, 16>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
+                           os, causal, window, vec, stream);
     case 32:
-      return launch<32>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                        causal, window, vec, stream);
+      return launch<T, 32>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
+                           os, causal, window, vec, stream);
     case 64:
-      return launch<64>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                        causal, window, vec, stream);
+      return launch<T, 64>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
+                           os, causal, window, vec, stream);
     case 128:
-      return launch<128>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs, os,
-                         causal, window, vec, stream);
+      return launch<T, 128>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
+                            os, causal, window, vec, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace tc
-
-// 16-byte copies need every row of every view 16-byte aligned: the base
-// pointers and all three strides (in bf16 elements, so multiples of 8).
-bool aligned16(const void* const* ptrs, const Strides* strides, int n) {
+// 16-byte reads and writes need every row of every view 16-byte aligned:
+// the base pointers and all three strides (multiples of `per16` elements,
+// the elements in 16 bytes).
+bool aligned16(const void* const* ptrs, const Strides* strides, int n,
+               int per16) {
   for (int i = 0; i < n; ++i) {
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
-    if (strides[i].b % 8 || strides[i].h % 8 || strides[i].s % 8) return false;
+    if (strides[i].b % per16 || strides[i].h % per16 || strides[i].s % per16)
+      return false;
   }
   return true;
 }
@@ -624,15 +694,15 @@ extern "C" int windve_flash_attention(
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* ptrs[4] = {q, k, v, o};
+  const Strides strides[4] = {qs, ks, vs, os};
   if (dtype == 0)
     return dispatch_hd<float>(hd, q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs,
-                              ks, vs, os, causal, window, st);
-  if (dtype == 1) {
-    const void* ptrs[4] = {q, k, v, o};
-    const Strides strides[4] = {qs, ks, vs, os};
-    return tc::dispatch_hd(hd, q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks,
-                           vs, os, causal, window, aligned16(ptrs, strides, 4),
-                           st);
-  }
+                              ks, vs, os, causal, window,
+                              aligned16(ptrs, strides, 4, 4), st);
+  if (dtype == 1)
+    return dispatch_hd<bf16>(hd, q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks,
+                             vs, os, causal, window,
+                             aligned16(ptrs, strides, 4, 8), st);
   return cudaErrorInvalidValue;
 }

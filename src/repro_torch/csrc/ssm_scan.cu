@@ -7,85 +7,343 @@
 //   y[b,t,d] = sum_n h[n] * C[b,t,n]
 // for t = 0 .. S-1; y (B, S, DI) and the final h (B, DI, N) are fp32.
 //
-// What bounds it on this card: memory.  x, dt and y are (B, S, DI) streams
-// read or written once; B and C are (B, S, N) with N = 16, shared by every
-// channel of a row; about 7 flops and one exp per (b, t, d, n).  At
-// hymba-1.5b's prefill (B 16, S 64, DI 3200, N 16) that is ~36 MB against
-// ~0.4 GFLOP, so bytes set the bound.
+// What bounds it on this card.  x, dt and y are (B, S, DI) streams read or
+// written once; B and C are (B, S, N) with N = 16, shared by every channel
+// of a row.  Each (b, t, d, n) takes one exp, on the SFU (MUFU.EX2, 16 a
+// clock an SM), and three FMA-pipe operations.  At hymba-1.5b's prefill
+// (B 16, S 64, DI 3200) that is 52.4 M exps, 0.0125 ms at 1.98 GHz, just
+// above the 0.0109 ms that its 36 MB take at 3.35 TB/s; at the 1100-token
+// prompt (B 2) 113 M exps, 0.027 ms.  But the recurrence is serial in t, so
+// what a design must first get out of the way is each step's latency.
 //
-// Design: the recurrence is sequential in t and independent across (b, d),
-// so one thread owns one (b, d) channel, holds its N-wide state and its row
-// of A in registers, and loops over S; the TPU kernel's sequential chunk
-// axis and (block_di, N) VMEM scratch become that loop and those registers.
-// A block is 128 channels of one batch row: its x, dt and y accesses are
-// coalesced along d, and every 32 steps it stages B_t and C_t (the same
-// for all its channels) in shared memory.  N is 16, the state size of
-// every Mamba-1 configuration in the repo.  Any S and any DI: the last
-// channel block and the last time chunk are masked, not padded.  expf, not
-// __expf, so the result holds fp32 tolerance against the plain version.
+// Design.  The TPU kernel's sequential chunk axis becomes a loop inside a
+// block, its (block_di, N) VMEM scratch the registers of the threads.
+//   - A channel's 16 states are split over LANES neighbouring lanes (16 /
+//     LANES states a lane), each lane forming its partial of y_t.  Every
+//     LANES steps a reduce-scatter over the lanes (LANES - 1 xor shuffles)
+//     leaves lane l with step l's y, so no shuffle sits on the steps' chain:
+//     the only dependence between steps is h's FMA.  A group of LANES steps
+//     first reads its x, dt, B and C and forms its exps, which do not wait
+//     on h, so the SFU's work issues back to back.
+//   - A block is 128 threads, 128 / LANES channels of one batch row.  Time
+//     is cut into chunks of CHUNK steps; each chunk's x, dt, B and C tiles
+//     are staged in shared memory with 16-byte cp.async copies,
+//     double-buffered, so chunk c + 1 loads while chunk c computes and the
+//     step loop reads only shared memory and registers.  Every chunk runs
+//     whole, unrolled: steps past S are staged as zeros, which leave h as
+//     it is.  y is gathered in shared memory and written a chunk at a time,
+//     16 bytes a thread.
+//   - exp(dt * A) = 2^(dt * A log2 e) with A scaled once: one FMUL and one
+//     SFU ex2 (relative error 2^-22) a state and step.
+//   - LANES, 2 or 8, comes from the caller (ssm_scan.ops.scan_lanes, from
+//     the card's SM count): 2 where that grid gives every SM four blocks,
+//     else 8.  2 lanes take a quarter of the shared-memory reads and
+//     shuffles of a channel's step that 8 do, 8 a quarter of the chain a
+//     lane runs.  Hymba's prefill (B 16) takes 2: 800 blocks of 64
+//     channels, six an SM.  The 1100-token prompt at B 2 takes 8: 400
+//     blocks of 16 channels, where the time is one block's chain.  (4
+//     lanes, between them, was slower than the one chosen at every shape
+//     timed.)
+//   - Any S and any DI: rows past S and channels past DI are zero-filled and
+//     never stored.  Views whose rows are not 16-byte aligned (DI not a
+//     multiple of 4 floats / 8 bf16) take an instantiation that copies
+//     element by element.  N is 16, the state size of every Mamba-1
+//     configuration in the repo.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;     // channels per block
-constexpr int CHUNK = 32;        // time steps of B and C staged at once
-constexpr int N_STATE = 16;      // the state size of every Mamba-1 config
+constexpr int THREADS = 128;
+constexpr int N_STATE = 16;        // the state size of every Mamba-1 config
+constexpr int CHUNK = 16;          // time steps staged at once
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A channel's states split over LANES lanes.
+template <int LANES>
+struct Lanes {
+  static_assert(N_STATE % LANES == 0 && (LANES & (LANES - 1)) == 0
+                    && CHUNK % LANES == 0,
+                "a power-of-two number of lanes, whole states a lane");
+  static constexpr int NL = N_STATE / LANES;     // states a lane
+  static constexpr int CH = THREADS / LANES;     // channels a block
+  // y rows: a warp's LANES steps x 32 / LANES channels land on distinct banks
+  static constexpr int YPITCH = CH + 32 / LANES;
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ void set_zero(float& v) { v = 0.f; }
+__device__ __forceinline__ void set_zero(__nv_bfloat16& v) {
+  v = __float2bfloat16_rn(0.f);
+}
 
-template <typename T, int N>
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x, the SFU's approximation (relative error 2^-22; 2^0 is exactly 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename X, int CH>
+struct Stage {
+  __align__(16) X x[CHUNK][CH];
+  __align__(16) float dt[CHUNK][CH];
+  __align__(16) float B[CHUNK][N_STATE];
+  __align__(16) float C[CHUNK][N_STATE];
+};
+
+// One 16-byte piece of E from src to dst: a cp.async copy when VEC,
+// element copies otherwise; zeros where `ok` is false.
+template <typename E, bool VEC>
+__device__ __forceinline__ void copy16(E* dst, const E* src, bool ok) {
+  constexpr int PER = 16 / sizeof(E);
+  if (!ok) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  } else if (VEC) {
+    cp_async16(dst, src);
+  } else {
+#pragma unroll
+    for (int e = 0; e < PER; ++e) dst[e] = src[e];
+  }
+}
+
+// Stage time steps [t0, t0 + CHUNK) of channels [d0, d0 + CH) of row b:
+// x and dt tiles (CHUNK, CH) and B and C tiles (CHUNK, N); zeros at or past
+// step S and past DI.  Without VEC a 16-byte piece is copied element by element, each
+// element masked alone.
+template <typename X, int CH, bool VEC>
+__device__ __forceinline__ void stage(Stage<X, CH>& s, const X* x,
+                                      const float* dt, const float* Bm,
+                                      const float* Cm, long long row, int S,
+                                      int DI, int d0, int t0) {
+  constexpr int XP = 16 / sizeof(X);        // x elements a 16-byte piece
+  constexpr int XR = CH / XP, FR = CH / 4, NR = N_STATE / 4;  // pieces a row
+  constexpr int PIECES = CHUNK * (XR + FR + 2 * NR);
+  for (int i = threadIdx.x; i < PIECES; i += THREADS) {
+    int j = i;
+    if (j < CHUNK * XR) {                    // x
+      const int t = j / XR, c = (j % XR) * XP, tt = t0 + t, d = d0 + c;
+      const X* src = x + (row + tt) * DI + d;
+      if (VEC || tt >= S || d + XP <= DI) {
+        copy16<X, VEC>(&s.x[t][c], src, tt < S && d < DI);
+      } else {
+        for (int e = 0; e < XP; ++e) {
+          if (d + e < DI) s.x[t][c + e] = src[e];
+          else set_zero(s.x[t][c + e]);
+        }
+      }
+      continue;
+    }
+    j -= CHUNK * XR;
+    if (j < CHUNK * FR) {                    // dt
+      const int t = j / FR, c = (j % FR) * 4, tt = t0 + t, d = d0 + c;
+      const float* src = dt + (row + tt) * DI + d;
+      if (VEC || tt >= S || d + 4 <= DI) {
+        copy16<float, VEC>(&s.dt[t][c], src, tt < S && d < DI);
+      } else {
+        for (int e = 0; e < 4; ++e) s.dt[t][c + e] = d + e < DI ? src[e] : 0.f;
+      }
+      continue;
+    }
+    j -= CHUNK * FR;                         // B, then C: rows of N floats
+    const int w = j / (CHUNK * NR);
+    j %= CHUNK * NR;
+    const int t = j / NR, c = (j % NR) * 4, tt = t0 + t;
+    float* dst = w ? &s.C[t][c] : &s.B[t][c];
+    copy16<float, VEC>(dst, (w ? Cm : Bm) + (row + tt) * N_STATE + c, tt < S);
+  }
+}
+
+template <typename X, int LANES, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+ssm_scan_kernel(const X* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ Bm, const float* __restrict__ Cm,
                 const float* __restrict__ A, float* __restrict__ y,
                 float* __restrict__ h_out, int S, int DI) {
-  __shared__ float sB[CHUNK * N];
-  __shared__ float sC[CHUNK * N];
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * THREADS + threadIdx.x;
+  using L = Lanes<LANES>;
+  constexpr int NL = L::NL, CH = L::CH;
+  __shared__ Stage<X, CH> st[2];
+  __shared__ __align__(16) float ys[CHUNK][L::YPITCH];
+  const int b = blockIdx.y, d0 = blockIdx.x * CH;
+  const int c = threadIdx.x / LANES, sub = threadIdx.x % LANES;
+  const int d = d0 + c;
   const bool active = d < DI;
-
-  float a[N], h[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = active ? A[static_cast<long long>(d) * N + n] : 0.f;
-    h[n] = 0.f;
-  }
   const long long row = static_cast<long long>(b) * S;
-  const float* Bb = Bm + row * N;
-  const float* Cb = Cm + row * N;
 
-  for (int t0 = 0; t0 < S; t0 += CHUNK) {
-    const int len = min(CHUNK, S - t0);
-    __syncthreads();                 // the previous chunk is consumed
-    for (int i = threadIdx.x; i < len * N; i += THREADS) {
-      sB[i] = Bb[static_cast<long long>(t0) * N + i];
-      sC[i] = Cb[static_cast<long long>(t0) * N + i];
+  float a[NL], h[NL];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    a[j] = active ? A[static_cast<long long>(d) * N_STATE + sub * NL + j]
+                        * LOG2E
+                  : 0.f;
+    h[j] = 0.f;
+  }
+
+  const int chunks = (S + CHUNK - 1) / CHUNK;
+  if (chunks > 0) stage<X, CH, VEC>(st[0], x, dt, Bm, Cm, row, S, DI, d0, 0);
+  cp_async_commit();
+  for (int ci = 0; ci < chunks; ++ci) {
+    const int t0 = ci * CHUNK, len = min(CHUNK, S - t0);
+    if (ci + 1 < chunks) {   // the buffer chunk ci + 1 takes was freed at ci - 1
+      stage<X, CH, VEC>(st[(ci + 1) & 1], x, dt, Bm, Cm, row, S, DI, d0,
+                        t0 + CHUNK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    if (!active) continue;
-    for (int t = 0; t < len; ++t) {
-      const long long off = (row + t0 + t) * DI + d;
-      const float dtv = dt[off];
-      const float dx = dtv * to_f(x[off]);
-      float acc = 0.f;
+    const Stage<X, CH>& s = st[ci & 1];
+    // Whole chunks: a step past S was staged as zeros and leaves h as it is
+    // (2^0 = 1, dt x = 0); its y is not stored.  Every lane runs
+    // every step (the shuffles take the whole warp); lanes of channels past
+    // DI carry zeros and store nothing.
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = h[n] * expf(dtv * a[n]) + dx * sB[t * N + n];
-        acc += h[n] * sC[t * N + n];
+    for (int g = 0; g < CHUNK; g += LANES) {
+      // The group's reads and exps first: they do not wait on h, so the
+      // SFU's work of LANES steps issues back to back; h's chain is FMAs.
+      float e[LANES][NL], w[LANES][NL], cv[LANES][NL];
+#pragma unroll
+      for (int u = 0; u < LANES; ++u) {
+        const int t = g + u;
+        const float dtv = s.dt[t][c];
+        const float dx = dtv * to_f(s.x[t][c]);
+        float bv[NL];              // the lane's states of B_t (and C_t)
+        if constexpr (NL % 4 == 0) {
+#pragma unroll
+          for (int j = 0; j < NL; j += 4) {
+            const float4 b4 =
+                *reinterpret_cast<const float4*>(&s.B[t][sub * NL + j]);
+            const float4 c4 =
+                *reinterpret_cast<const float4*>(&s.C[t][sub * NL + j]);
+            bv[j] = b4.x, bv[j + 1] = b4.y, bv[j + 2] = b4.z, bv[j + 3] = b4.w;
+            cv[u][j] = c4.x, cv[u][j + 1] = c4.y, cv[u][j + 2] = c4.z,
+            cv[u][j + 3] = c4.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NL; ++j) {
+            bv[j] = s.B[t][sub * NL + j];
+            cv[u][j] = s.C[t][sub * NL + j];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NL; ++j) {
+          e[u][j] = ex2(dtv * a[j]);
+          w[u][j] = dx * bv[j];
+        }
       }
-      y[off] = acc;
+      float v[LANES];          // the lane's partial y at steps g .. g + LANES
+#pragma unroll
+      for (int u = 0; u < LANES; ++u) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < NL; ++j) {
+          h[j] = fmaf(h[j], e[u][j], w[u][j]);
+          acc = fmaf(h[j], cv[u][j], acc);
+        }
+        v[u] = acc;
+      }
+      // Reduce-scatter over the channel's lanes, halves first: after the
+      // round of mask m a lane holds the sums of m steps, and at the end
+      // lane `sub` holds step g + sub's y, (p0 + p2) + (p1 + p3) at 4 lanes.
+#pragma unroll
+      for (int m = LANES / 2; m >= 1; m /= 2) {
+        const bool upper = sub & m;
+#pragma unroll
+        for (int j = 0; j < m; ++j) {
+          const float keep = upper ? v[m + j] : v[j];
+          const float send = upper ? v[j] : v[m + j];
+          v[j] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+        }
+      }
+      ys[g + sub][c] = v[0];
+    }
+    __syncthreads();
+    // y rows t0 .. t0 + len of the block's channels, 16 bytes a thread
+    for (int i = threadIdx.x; i < CHUNK * CH / 4; i += THREADS) {
+      const int t = i / (CH / 4), cc = (i % (CH / 4)) * 4, dd = d0 + cc;
+      if (t >= len) continue;
+      float* dst = y + (row + t0 + t) * DI + dd;
+      if (VEC) {
+        if (dd < DI)
+          *reinterpret_cast<float4*>(dst) =
+              *reinterpret_cast<const float4*>(&ys[t][cc]);
+      } else {
+        for (int e = 0; e < 4; ++e)
+          if (dd + e < DI) dst[e] = ys[t][cc + e];
+      }
     }
   }
   if (active) {
-    float* ho = h_out + (static_cast<long long>(b) * DI + d) * N;
+    float* ho = h_out + (static_cast<long long>(b) * DI + d) * N_STATE
+                + sub * NL;
 #pragma unroll
-    for (int n = 0; n < N; ++n) ho[n] = h[n];
+    for (int j = 0; j < NL; ++j) ho[j] = h[j];
+  }
+}
+
+template <typename X, int LANES, bool VEC>
+cudaError_t launch(const void* x, const void* dt, const void* Bm,
+                   const void* Cm, const void* A, void* y, void* h, int B,
+                   int S, int DI, cudaStream_t st) {
+  constexpr int CH = Lanes<LANES>::CH;
+  const dim3 grid((DI + CH - 1) / CH, B);
+  ssm_scan_kernel<X, LANES, VEC><<<grid, THREADS, 0, st>>>(
+      static_cast<const X*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(Bm), static_cast<const float*>(Cm),
+      static_cast<const float*>(A), static_cast<float*>(y),
+      static_cast<float*>(h), S, DI);
+  return cudaGetLastError();
+}
+
+template <typename X, int LANES>
+cudaError_t launch_as(bool vec, const void* x, const void* dt,
+                      const void* Bm, const void* Cm, const void* A, void* y,
+                      void* h, int B, int S, int DI, cudaStream_t st) {
+  return vec ? launch<X, LANES, true>(x, dt, Bm, Cm, A, y, h, B, S, DI, st)
+             : launch<X, LANES, false>(x, dt, Bm, Cm, A, y, h, B, S, DI, st);
+}
+
+template <typename X>
+cudaError_t dispatch(const void* x, const void* dt, const void* Bm,
+                     const void* Cm, const void* A, void* y, void* h, int B,
+                     int S, int DI, int lanes, cudaStream_t st) {
+  // 16-byte pieces need 16-byte aligned bases and rows of whole pieces
+  const void* ptrs[6] = {x, dt, Bm, Cm, y, h};
+  bool vec = DI % (16 / sizeof(X)) == 0 && DI % 4 == 0;
+  for (const void* p : ptrs)
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  switch (lanes) {
+    case 2:
+      return launch_as<X, 2>(vec, x, dt, Bm, Cm, A, y, h, B, S, DI, st);
+    case 8:
+      return launch_as<X, 8>(vec, x, dt, Bm, Cm, A, y, h, B, S, DI, st);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -93,30 +351,19 @@ ssm_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 // x (B, S, DI) contiguous, dtype 0 = float32, 1 = bfloat16; dt (B, S, DI),
 // Bm and Cm (B, S, 16), A (DI, 16), all float32 contiguous; y (B, S, DI)
-// and h (B, DI, 16) float32 outputs.  Launches on `stream` and returns the
-// launch's cudaError_t.
+// and h (B, DI, 16) float32 outputs; lanes (2 or 8) a channel.
+// Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int windve_ssm_scan(const void* x, const void* dt, const void* Bm,
                                const void* Cm, const void* A, void* y,
                                void* h, int dtype, int B, int S, int DI,
-                               void* stream) {
+                               int lanes, void* stream) {
   if (B <= 0 || DI <= 0) return cudaSuccess;
-  if (S < 0) return cudaErrorInvalidValue;
+  if (S < 0 || B > 65535) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((DI + THREADS - 1) / THREADS, B);
-  const float* dtp = static_cast<const float*>(dt);
-  const float* bp = static_cast<const float*>(Bm);
-  const float* cp = static_cast<const float*>(Cm);
-  const float* ap = static_cast<const float*>(A);
-  float* yp = static_cast<float*>(y);
-  float* hp = static_cast<float*>(h);
-  if (dtype == 0) {
-    ssm_scan_kernel<float, N_STATE><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), dtp, bp, cp, ap, yp, hp, S, DI);
-  } else if (dtype == 1) {
-    ssm_scan_kernel<__nv_bfloat16, N_STATE><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), dtp, bp, cp, ap, yp, hp, S, DI);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == 0)
+    return dispatch<float>(x, dt, Bm, Cm, A, y, h, B, S, DI, lanes, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(x, dt, Bm, Cm, A, y, h, B, S, DI, lanes,
+                                   st);
+  return cudaErrorInvalidValue;
 }

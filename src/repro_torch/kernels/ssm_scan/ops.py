@@ -12,7 +12,17 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZE = 16                   # N: the state lives in registers
+THREADS = 128                     # a block: 128 / lanes channels
 _count_lock = threading.Lock()
+
+
+def scan_lanes(B: int, DI: int, sms: int) -> int:
+    """Lanes a channel for the kernel on a card of ``sms`` SMs: 2 where its
+    grid of B x DI / 64 blocks gives every SM four, else 8.  2 lanes take
+    fewer shared-memory reads and shuffles a channel's step, 8 a shorter
+    chain a lane: hymba-1.5b's prefill (B 16, DI 3200) takes 2, the
+    1100-token prompt at B 2 takes 8."""
+    return 2 if -(-DI // (THREADS // 2)) * B >= 4 * sms else 8
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
@@ -54,12 +64,13 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     x, dt, Bm, Cm, A = (t.contiguous() for t in (x, dt, Bm, Cm, A))
     y = torch.empty((Bsz, S, DI), dtype=torch.float32, device=x.device)
     h = torch.empty((Bsz, DI, N), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     lib = build.load()
     with torch.cuda.device(x.device):
         err = lib.windve_ssm_scan(
             x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             A.data_ptr(), y.data_ptr(), h.data_ptr(), _DTYPES[x.dtype], Bsz,
-            S, DI, build.stream_handle(x.device))
+            S, DI, scan_lanes(Bsz, DI, sms), build.stream_handle(x.device))
     build.check(lib, err, "ssm_scan")
     with _count_lock:                 # engine workers launch from threads
         ssm_scan.launches += 1
@@ -69,4 +80,4 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
 ssm_scan.launches = 0
 
 
-__all__ = ["ssm_scan", "ssm_scan_ref", "STATE_SIZE"]
+__all__ = ["ssm_scan", "ssm_scan_ref", "scan_lanes", "STATE_SIZE"]

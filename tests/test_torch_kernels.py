@@ -194,7 +194,8 @@ class TestRouting:
         assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
-    @pytest.mark.parametrize("name", ["w8a8", "rmsnorm"])
+    @pytest.mark.parametrize("name", ["w8a8", "rmsnorm", "attention_fp32",
+                                      "ssm_scan"])
     def test_kernel_variant_substitutions_apply_to_the_sources(self, name):
         """benchmarks/torch_kernel_variants.py times variants made by
         literal substitutions in this tree's CUDA sources: each must still

@@ -536,9 +536,10 @@ def _ssm_inputs(B, S, DI, N, dtype, seed=5):
     return x, dt, Bm, Cm, A
 
 
-# (B, S, DI, N): hymba-1.5b's prefill, then S and DI off the tile sizes
+# (B, S, DI, N): hymba-1.5b's prefill, then S and DI off the tile sizes,
+# then the 1100-token prompt at B 2 (69 time chunks, 200 blocks)
 SSM_CASES = [(16, 64, 3200, 16), (2, 50, 200, 16), (3, 33, 130, 16),
-             (1, 1, 7, 16)]
+             (1, 1, 7, 16), (2, 1100, 3200, 16)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -553,6 +554,39 @@ def test_ssm_scan_kernel_matches_plain(case, dtype):
     y_ref, h_ref = ssm_scan_ref(x, dt, Bm, Cm, A)
     assert y.dtype == h.dtype == torch.float32
     # both read the same x and compute in fp32
+    _close(y, y_ref, "float32")
+    _close(h, h_ref, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lanes", [2, 8])
+@pytest.mark.parametrize("shape", [(2, 300, 200), (3, 33, 130)],
+                         ids=lambda c: "B{}S{}DI{}".format(*c))
+def test_ssm_scan_under_each_lane_split(shape, lanes, dtype, monkeypatch):
+    """Both lane splits, whatever the router picks for the shape, on the
+    vector (DI 200) and element-copy (DI 130) paths."""
+    from repro_torch.kernels.ssm_scan import ops
+
+    monkeypatch.setattr(ops, "scan_lanes", lambda *_: lanes)
+    x, dt, Bm, Cm, A = _ssm_inputs(*shape, 16, dtype)
+    dt = dt * 0.05               # a slow decay: h carries far
+    y, h = ssm_scan(x, dt, Bm, Cm, A)
+    y_ref, h_ref = ssm_scan_ref(x, dt, Bm, Cm, A)
+    _close(y, y_ref, "float32")
+    _close(h, h_ref, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_takes_an_unaligned_base(dtype):
+    """A contiguous x that starts one element past a 16-byte boundary
+    takes the element-copy path."""
+    x, dt, Bm, Cm, A = _ssm_inputs(2, 40, 96, 16, dtype)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    xu = flat[1:].view_as(x)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16
+    y, h = ssm_scan(xu, dt, Bm, Cm, A)
+    y_ref, h_ref = ssm_scan_ref(x, dt, Bm, Cm, A)
     _close(y, y_ref, "float32")
     _close(h, h_ref, "float32")
 
