@@ -6,10 +6,12 @@ card, each held against the kernel's plain PyTorch version.
     python3 benchmarks/torch_kernel_variants.py --set rmsnorm --parent DIR
     python3 benchmarks/torch_kernel_variants.py --set attention_fp32 --parent DIR
     python3 benchmarks/torch_kernel_variants.py --set ssm_scan --parent DIR
+    python3 benchmarks/torch_kernel_variants.py --set quantize_rows --parent DIR
 
 A variant is a source file under ``src/repro_torch/csrc`` (this tree's, or
 the parent tree's unpacked at ``--parent``) with literal substitutions
-applied.  Each variant is built by ``nvcc`` into a library of its own under
+applied.  Each variant is built by ``nvcc``, with its tree's ``common.cu``,
+into a library of its own under
 ``build/variants`` (ptxas output in ``variants_ptxas.log`` there) and bound
 with the port's ctypes signatures.  At each shape of the main paths the
 variants run in turns (in order, then in reverse), each time the median of
@@ -18,8 +20,9 @@ variants run in turns (in order, then in reverse), each time the median of
 times in ms and whether it matched the plain version (bit for bit for
 w8a8_matmul; within rmsnorm's limits, 1e-4 / 2e-2 of the largest output in
 fp32 / bf16; fp32 attention within 1e-4 with zero rows where kv_len is 0;
-the scan's y and h within 1e-4 of their largest magnitudes).  Needs a
-card; exits non-zero without one.
+the scan's y and h within 1e-4 of their largest magnitudes; quantize_rows
+bit for bit, with ``x.to(torch.int8)`` timed beside it as a yardstick for
+the same bytes).  Needs a card; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -42,8 +45,8 @@ SETS = {
     "w8a8": {
         "parent": (QM, [], True),
         "tree": (QM, [], False),
-        "64_row_tiles": (QM, [("big >= 2 * SMS ?", "false ?")], False),
-        "128_row_tiles": (QM, [("big >= 2 * SMS ?", "true ?")], False),
+        "64_row_tiles": (QM, [("big >= 2 * sms ?", "false ?")], False),
+        "128_row_tiles": (QM, [("big >= 2 * sms ?", "true ?")], False),
         "3_stages": (QM, [("BK = 64, STAGES = 4", "BK = 64, STAGES = 3")],
                      False),
         "k_steps_of_128": (QM, [("BK = 64, STAGES = 4",
@@ -96,6 +99,37 @@ SETS = {
         "expf": (SS, [("\n                        * LOG2E\n", "\n"),
                       ("ex2(dtv * a[j])", "expf(dtv * a[j])")], False),
     },
+    # the tree: a row held in registers by 1 (K 1024) or 4 (K 4096) warps,
+    # x / s as x * (1 / s) with one FMA correction, rounding by an add
+    "quantize_rows": {
+        "parent": (QM, [], True),
+        "tree": (QM, [], False),
+        # the divide and the rounding of the parent, in the tree's layout
+        "fdiv": (QM, [("    if (s >= 0x1p-100f && s <= FLT_MAX)",
+                       "    if (false)")], False),
+        "rintf": (QM, [("  return __float_as_uint(__fadd_rn(d, ROUNDER));",
+                        "  return static_cast<unsigned>(static_cast<int>("
+                        "rintf(d)));")], False),
+        # K 4096 by one warp a row that reads the row twice, the second
+        # time from L1 or L2
+        "warp_a_row_rereads": (QM, [("constexpr int MAX_WPR = 8;",
+                                     "constexpr int MAX_WPR = 1;")], False),
+        # 4 chunks a lane: K 4096 by two warps a row
+        "4_chunks_a_lane": (QM, [("constexpr int CPL = 2;",
+                                  "constexpr int CPL = 4;")], False),
+        # 8 values a lane a chunk: 8-byte stores, one 16-byte load of bf16
+        "8_values_a_chunk": (QM, [("constexpr int VALS = 16;",
+                                   "constexpr int VALS = 8;")], False),
+        # the grid capped at 16 warps an SM, below the occupancy's wave
+        "16_warps_an_sm": (QM, [("(long long)sms * per_sm * per_block",
+                                 "(long long)sms * std::min(per_sm, 16 * 32"
+                                 " / threads) * per_block")], False),
+        # 64 warps an SM whatever the occupancy: more than one wave where
+        # the kernel's registers hold fewer
+        "64_warps_an_sm": (QM, [("(long long)sms * per_sm * per_block",
+                                 "(long long)sms * (64 * 32 / threads)"
+                                 " * per_block")], False),
+    },
 }
 
 
@@ -124,7 +158,8 @@ def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
             f.write(text)
         so = os.path.join(out_dir, f"{name}.so")
         cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-               "-I", os.path.join(base, CSRC), cu, "-o", so]
+               "-I", os.path.join(base, CSRC), cu,
+               os.path.join(base, CSRC, "common.cu"), "-o", so]
         procs.append((name, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -348,6 +383,45 @@ def ssm_scan_shapes(libs: dict) -> None:
               flush=True)
 
 
+def quantize_rows_shapes(libs: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.quant_matmul import quantize_activations
+
+    rng = np.random.default_rng(7)
+    stream = torch.cuda.current_stream().cuda_stream
+    # bge-large-zh-v1.5's projection inputs at 16 x 96 tokens (K 1024 for
+    # q/k/v, wo and w_in; K 4096 for w_out) in fp32 (the W8A8 policy's) and
+    # bf16, and 8x the rows, where each warp quantizes several in turn
+    for M, K, dt in ((1536, 1024, torch.float32), (1536, 4096, torch.float32),
+                     (1536, 1024, torch.bfloat16),
+                     (12288, 1024, torch.float32)):
+        x = torch.from_numpy(rng.standard_normal((M, K), np.float32)
+                             ).cuda().to(dt)
+        x[1] = 0
+        want8, want_s = quantize_activations(x)
+        x8 = torch.empty((M, K), dtype=torch.int8, device="cuda")
+        s = torch.empty((M,), device="cuda")
+        code = 0 if dt == torch.float32 else 1
+        args = (x.data_ptr(), K, x8.data_ptr(), s.data_ptr(), code, M, K,
+                stream)
+        runs = {name: (lambda lib=lib: lib.windve_quantize_rows(*args))
+                for name, lib in libs.items()}
+
+        def yardstick():                 # the same bytes, not the function
+            x8.copy_(x)
+            return 0
+
+        runs["yardstick_copy_to_int8"] = yardstick
+        res = in_turns(runs, lambda fn: fn(),
+                       lambda: bool(torch.equal(x8, want8)
+                                    and torch.equal(s, want_s)))
+        res["yardstick_copy_to_int8"]["ok"] = None    # another function
+        print(json.dumps({"kernel": "quantize_rows", "M": M, "K": K,
+                          "dtype": str(dt), **res}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--set", choices=sorted(SETS), required=True)
@@ -365,7 +439,8 @@ def main() -> int:
                           os.path.join(args.out, args.set))
     {"w8a8": w8a8_shapes, "rmsnorm": rmsnorm_shapes,
      "attention_fp32": attention_fp32_shapes,
-     "ssm_scan": ssm_scan_shapes}[args.set](libs)
+     "ssm_scan": ssm_scan_shapes,
+     "quantize_rows": quantize_rows_shapes}[args.set](libs)
     return 0
 
 

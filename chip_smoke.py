@@ -14,16 +14,16 @@ non-zero:
   kernels  each kernel against its plain PyTorch version on the same inputs
            on the card, with its time, the plain version's, one PyTorch
            library call's (a yardstick the port never calls) and the bound.
-           The summary's flash_attention, pool_norm, quant_matmul,
-           w8a8_matmul, rmsnorm, ssm_scan and flash_decode rows also carry
-           a `cases` map: attention in fp32 and bf16 at bge's and hymba's
-           prefill shapes (S 64 and the 1100-token prompt), mean pooling in
-           fp32 and bf16, the three bge projections in fp32 and w_in in
-           bf16 (weight-only and W8A8), rmsnorm at hymba's prefill and
-           decode rows in fp32 and bf16, the scan at hymba's prefill and at
-           the 1100-token prompt with bf16 and fp32 x, and decode attention
-           at the served shape in the three (q, cache) pairs, on a
-           1024-slot ring and at starcoder2-7b's G 9 x hd 128.
+           Every row of the summary also carries a `cases` map: attention
+           in fp32 and bf16 at bge's and hymba's prefill shapes (S 64 and
+           the 1100-token prompt), mean pooling in fp32 and bf16, the three
+           bge projections in fp32 and w_in in bf16 (weight-only and W8A8),
+           quantize_rows at K 1024 and 4096 (with `x.to(torch.int8)`
+           beside it, a yardstick for the same bytes), rmsnorm at hymba's
+           prefill and decode rows in fp32 and bf16, the scan at hymba's
+           prefill and at the 1100-token prompt with bf16 and fp32 x, and
+           decode attention at the served shape in the three (q, cache)
+           pairs, on a 1024-slot ring and at starcoder2-7b's G 9 x hd 128.
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
            vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
@@ -32,7 +32,8 @@ non-zero:
            (24 x 1024) in fp32, bf16, int8 and int8_w8a8, and jina-v2 in
            fp32 (mean pooling).  Launch counts are zeroed just before this
            phase and read just after it; every embedding kernel must have
-           run.
+           run, and quantize_rows 4 times for every 6 w8a8_matmul launches
+           (q, k and v share one quantized input).
   generate launch/serve_llm's engine for hymba-1.5b at full width (32
            layers, d_model 1600, random weights): 32 prompts of 64 tokens
            in two waves of 16, 16 greedy tokens each.  Launch counts are
@@ -411,6 +412,9 @@ def quantize_rows_case(dev, M, K) -> dict:
     out["kernel_ms"] = time_ms(lambda: quantize_rows(x), dev)
     out["plain_ms"] = time_ms(lambda: quantize_activations(x), dev)
     out["library_ms"] = None              # no one PyTorch call does this
+    # a yardstick for the bytes alone, not the function: one PyTorch call
+    # that reads x once and writes a byte a value
+    out["yardstick_to_int8_ms"] = time_ms(lambda: x.to(torch.int8), dev)
     return out
 
 
@@ -711,6 +715,8 @@ def phase_kernels(args, dev) -> dict:
                       "quant_matmul": {
                           "w_qkvo_float32": qm[0], "w_in_float32": qm[1],
                           "w_out_float32": qm[2], "w_in_bfloat16": qm[3]},
+                      "quantize_rows": {
+                          "K1024_float32": qr[0], "K4096_float32": qr[1]},
                       "w8a8_matmul": {
                           "w_qkvo_float32": w8[0], "w_in_float32": w8[1],
                           "w_out_float32": w8[2], "w_in_bfloat16_out": w8[3]},
@@ -870,6 +876,11 @@ def phase_serve(args, dev) -> dict:
     if dev.type == "cuda":
         require(all(counts[name] > 0 for name in EMBED_KERNELS),
                 f"a kernel was not launched on the main path: {counts}")
+        # W8A8 bge quantizes 4 inputs a layer for its 6 int8 GEMMs (q, k
+        # and v share one)
+        require(6 * counts["quantize_rows"] == 4 * counts["w8a8_matmul"],
+                f"quantize_rows launches {counts['quantize_rows']}, want 4/6 "
+                f"of w8a8_matmul's {counts['w8a8_matmul']}")
     return {**out, "launches": counts}
 
 
@@ -1213,7 +1224,8 @@ def kernel_summary(main: dict, by_path: dict) -> dict:
     rows = []
     keys = ("kernel_ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
             "max_abs_err")
-    extra = ("bound_cuda_core_ms",)      # fp32 attention's CUDA-core figure
+    # fp32 attention's CUDA-core figure; quantize_rows' traffic yardstick
+    extra = ("bound_cuda_core_ms", "yardstick_to_int8_ms")
     for name, source, replaces in KERNELS:
         c = main[name]
         per_path = {path: counts.get(name, 0)

@@ -66,6 +66,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -393,21 +395,6 @@ flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
   cluster.sync();            // no block leaves while its part is read
 }
 
-// The current device's SM count, asked once a device.
-cudaError_t sm_count(int* n) {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && cached[dev] > 0) {
-    *n = cached[dev];
-    return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < 64) cached[dev] = *n;
-  return err;
-}
-
 template <typename TQ, typename TC, int NCH, int LG>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
                          const int* kpos, void* o, int B, int KV, int G,
@@ -422,7 +409,7 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   int CL = 1;
   if (Sc > MIN_SLOTS) {
     int sms = 0;
-    const cudaError_t err = sm_count(&sms);
+    const cudaError_t err = windve_sm_count(&sms);
     if (err != cudaSuccess) return err;
     const long long fit = sms / (pairs * ngc);
     const int most = (Sc + MIN_SLOTS - 1) / MIN_SLOTS;

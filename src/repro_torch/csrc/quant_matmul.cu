@@ -1,10 +1,14 @@
 // int8 projection kernels for NVIDIA Hopper (sm_90a): the weight-only GEMM,
 // the per-row activation quantizer and the int8 x int8 GEMM of the W8A8
 // policy.  Plain C entry points at the end, bound with ctypes.
+#include <algorithm>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -470,58 +474,353 @@ cudaError_t dispatch(const void* x, long long ldx, const int8_t* w,
 // (src/repro/kernels/quant_matmul/quant_matmul.py:47-63) that the
 // reference's quant_matmul_w8a8 puts into one jit with w8a8_matmul_pallas.
 //
-// What bounds it on this card: memory.  It reads x once per pass and writes
-// one byte per value and one scale per row; the arithmetic is one divide
-// per value.
+// What bounds it on this card: memory.  It reads x once and writes one byte
+// a value and one scale a row.  At bge's widths (M 1536, K 1024 or 4096)
+// that is 8 or 31 MB, a few microseconds, so a launch's fixed cost and the
+// latency of one round of loads weigh as much as the bytes.
 //
-// Design: one block per row.  Pass 1 reduces amax with a warp-shuffle block
-// reduction (max is exact in any order), pass 2 re-reads the row (from L1 /
-// L2: a row of bge is 4 or 16 KB) and writes int8.  The divides are true
-// IEEE divisions and rintf rounds half to even, so x8 and the scales equal
-// the plain version bit for bit: no __fdividef, no reciprocal, no fast math.
-// Subnormals are flushed by hand, as XLA does on the CPU and the TPU, so the
-// result does not depend on the compiler's -ftz setting.
+// Design: a group of WPR warps takes a row (a warp at K 1024, four at K
+// 4096: as few as hold the row in registers, CPL chunks a lane).  Each
+// lane owns chunks of VALS = 16 consecutive values: it issues all its
+// 16-byte loads of the row at once, takes its amax, and the group reduces
+// by warp shuffles (max is exact in any order), across warps through
+// shared memory behind one barrier.  The lane then quantizes the values it
+// holds and writes each chunk's 16 bytes with one store.  The grid is one
+// wave, sized from the card (its SM count times the blocks an SM holds of
+// the kernel as compiled), and walks the rows in a grid-stride loop, with
+// the next row's loads issued before this row is reduced.  A row too wide
+// to hold (K past MAX_WPR * 32 * CPL * VALS) is read twice: once for its
+// amax, once to quantize (the second read from L1 or L2).  Views whose base
+// or row stride is not 16-byte aligned, or whose K is not a multiple of
+// VALS, take the same code with element loads and byte stores.  One warp a
+// row that reads a K 4096 row twice, two warps a row, 8-value chunks, a
+// true divide a value and rintf were each timed against this design
+// (benchmarks/torch_kernel_variants.py --set quantize_rows; PERF.md): the
+// divide cost most, 0.0081 ms against 0.0045 at K 1024.
+//
+// Bit for bit the plain version (kernels/quant_matmul/ref.py), and so the
+// JAX package:
+//   - subnormals are flushed by hand, as XLA does on the CPU and the TPU,
+//     so the result does not depend on the compiler's -ftz setting; the
+//     amax is taken before the flush (the max of the flushed values is the
+//     raw max unless every value is subnormal);
+//   - the scale is a true IEEE divide;
+//   - x / scale is the correctly rounded quotient, formed as a product
+//     with r = 1 / scale (correctly rounded, once a row) and corrected by
+//     one residual (e = x - q s, exact by an FMA; q + e r rounds to x / s:
+//     Markstein's theorem).  It needs the residual exact, which holds for
+//     every quotient that can round to a nonzero int8 once scale >= 2^-100;
+//     rows with a smaller or infinite scale divide with __fdiv_rn;
+//   - rounding half to even is an add of 1.5 * 2^23 to the clamped
+//     quotient: the sum's ulp is 1, so the add rounds to the nearest even
+//     integer, and the int8 is the low byte of its bit pattern (no
+//     conversion instruction, which issues at a sixteenth of an add's rate).
+// tests/test_torch_quantize_rows.py emulates this arithmetic on the CPU
+// against the plain version and the JAX package.
 // ---------------------------------------------------------------------------
-constexpr int QR_THREADS = 256;
+namespace qr {
+
+constexpr int VALS = 16;         // consecutive values a lane owns
+constexpr int CPL = 2;           // chunks of VALS a lane holds
+constexpr int MAX_WPR = 8;       // warps a row, at most
+constexpr int BLOCK = 128;       // threads a block when a warp takes a row
+constexpr float ROUNDER = 12582912.0f;  // 1.5 * 2^23
+static_assert(VALS % 8 == 0 && VALS <= 32, "VALS: whole 16-byte loads");
+static_assert(MAX_WPR <= 8, "launch caches occupancy for wpr 1, 2, 4, 8");
+constexpr int MAX_THREADS = BLOCK > MAX_WPR * 32 ? BLOCK : MAX_WPR * 32;
+
+// VALS consecutive values of a row: 16-byte loads (VEC), or elements, the
+// ones past K read as 0.
+template <typename T, bool VEC>
+struct Chunk {
+  static constexpr int LOADS = VALS * sizeof(T) / 16;
+  uint4 v[VEC ? LOADS : 1];
+  T e[VEC ? 1 : VALS];
+
+  __device__ __forceinline__ void load(const T* p, int left) {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int i = 0; i < LOADS; ++i)
+        v[i] = reinterpret_cast<const uint4*>(p)[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < VALS; ++i)
+        e[i] = i < left ? p[i] : static_cast<T>(0.f);
+    }
+  }
+
+  __device__ __forceinline__ void get(float (&f)[VALS]) const {
+    if constexpr (!VEC) {
+#pragma unroll
+      for (int i = 0; i < VALS; ++i) f[i] = to_f(e[i]);
+    } else if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int i = 0; i < LOADS; ++i) {
+        f[4 * i] = __uint_as_float(v[i].x);
+        f[4 * i + 1] = __uint_as_float(v[i].y);
+        f[4 * i + 2] = __uint_as_float(v[i].z);
+        f[4 * i + 3] = __uint_as_float(v[i].w);
+      }
+    } else {                          // bf16: two a word, low half first
+#pragma unroll
+      for (int i = 0; i < LOADS; ++i) {
+        const unsigned w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          f[8 * i + 2 * j] = __uint_as_float(w[j] << 16);
+          f[8 * i + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+        }
+      }
+    }
+  }
+};
 
 __device__ __forceinline__ float flush(float v) {
   return fabsf(v) < FLT_MIN ? 0.f : v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(QR_THREADS)
-quantize_rows_kernel(const T* __restrict__ x, long long ldx,
-                     int8_t* __restrict__ x8, float* __restrict__ x_scale,
-                     int K) {
-  __shared__ float partial[QR_THREADS / 32];
-  const int m = blockIdx.x;
-  const T* xr = x + (long long)m * ldx;
-  float amax = 0.f;
-  for (int k = threadIdx.x; k < K; k += QR_THREADS)
-    amax = fmaxf(amax, fabsf(flush(to_f(xr[k]))));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) partial[warp] = amax;
-  __syncthreads();
-  if (warp == 0) {
-    amax = lane < QR_THREADS / 32 ? partial[lane] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    if (lane == 0) partial[0] = amax;
+// The int8 of v under scale s (r = 1 / s when RCP), as the low byte of the
+// result.
+template <bool RCP>
+__device__ __forceinline__ unsigned quantize(float v, float s, float r) {
+  v = flush(v);
+  float d;
+  if (RCP) {
+    const float q = __fmul_rn(v, r);
+    d = __fmaf_rn(__fmaf_rn(-q, s, v), r, q);
+  } else {
+    d = __fdiv_rn(v, s);
   }
-  __syncthreads();
-  amax = partial[0];
-  const float s = amax > 0.f ? fmaxf(__fdiv_rn(amax, 127.0f), FLT_MIN) : 1.0f;
-  if (threadIdx.x == 0) x_scale[m] = s;
-  int8_t* qr = x8 + (long long)m * K;
-  for (int k = threadIdx.x; k < K; k += QR_THREADS) {
-    const float q = rintf(__fdiv_rn(flush(to_f(xr[k])), s));
-    qr[k] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+  d = fminf(fmaxf(d, -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(d, ROUNDER));
+}
+
+// Low bytes of a, b, c, d as one word, a's lowest.
+__device__ __forceinline__ unsigned pack4(unsigned a, unsigned b, unsigned c,
+                                          unsigned d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// Quantizes a chunk and stores its VALS bytes at p (the first `left` of
+// them on the element path).
+template <bool RCP, typename T, bool VEC>
+__device__ __forceinline__ void put(const Chunk<T, VEC>& c, int8_t* p,
+                                    int left, float s, float r) {
+  float f[VALS];
+  c.get(f);
+  unsigned w[VALS / 4];
+#pragma unroll
+  for (int i = 0; i < VALS / 4; ++i)
+    w[i] = pack4(quantize<RCP>(f[4 * i], s, r),
+                 quantize<RCP>(f[4 * i + 1], s, r),
+                 quantize<RCP>(f[4 * i + 2], s, r),
+                 quantize<RCP>(f[4 * i + 3], s, r));
+  if constexpr (VEC) {
+#pragma unroll
+    for (int i = 0; i < VALS / 16; ++i)
+      reinterpret_cast<uint4*>(p)[i] =
+          make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+    if constexpr (VALS % 16 == 8)
+      reinterpret_cast<uint2*>(p)[VALS / 8 - 1] =
+          make_uint2(w[VALS / 4 - 2], w[VALS / 4 - 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VALS; ++i)
+      if (i < left) p[i] = static_cast<int8_t>(w[i / 4] >> (8 * (i % 4)));
   }
 }
+
+template <typename T, bool VEC>
+__device__ __forceinline__ float chunk_amax(const Chunk<T, VEC>& c) {
+  float f[VALS];
+  c.get(f);
+  float a = 0.f;
+#pragma unroll
+  for (int i = 0; i < VALS; ++i) a = fmaxf(a, fabsf(f[i]));
+  return a;
+}
+
+// A row's group: WPR warps, one block when WPR > 1.
+struct Group {
+  int t, threads, wpr, K;       // thread in the group, its threads, warps
+};
+
+// The group's amax of the lanes' `a` (one barrier when the group is more
+// than a warp; callers alternate `red` between rows), then the row's scale.
+__device__ __forceinline__ float row_scale(float a, const Group& g,
+                                           float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+  if (g.wpr > 1) {
+    if (g.t % 32 == 0) red[g.t / 32] = a;
+    __syncthreads();
+    a = red[0];
+    for (int w = 1; w < g.wpr; ++w) a = fmaxf(a, red[w]);
+  }
+  const float amax = a < FLT_MIN ? 0.f : a;     // every value subnormal
+  return amax > 0.f ? fmaxf(__fdiv_rn(amax, 127.f), FLT_MIN) : 1.f;
+}
+
+// The chunks a lane holds of a window of the row that starts at chunk c0:
+// chunks c0 + t + j * threads, j < CPL.
+template <typename T, bool VEC>
+struct Held {
+  Chunk<T, VEC> c[CPL];
+
+  __device__ __forceinline__ static int at(const Group& g, int c0, int j) {
+    return (c0 + g.t + j * g.threads) * VALS;     // the chunk's first value
+  }
+
+  __device__ __forceinline__ void load(const T* xr, const Group& g, int c0) {
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int k = at(g, c0, j);
+      if (k < g.K) c[j].load(xr + k, g.K - k);
+    }
+  }
+
+  __device__ __forceinline__ float amax(const Group& g, int c0) const {
+    float a = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j)
+      if (at(g, c0, j) < g.K) a = fmaxf(a, chunk_amax(c[j]));
+    return a;
+  }
+
+  template <bool RCP>
+  __device__ __forceinline__ void store_as(int8_t* qr, const Group& g, int c0,
+                                           float s, float r) const {
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int k = at(g, c0, j);
+      if (k < g.K) put<RCP>(c[j], qr + k, g.K - k, s, r);
+    }
+  }
+
+  // x / s through r = 1 / s where the correction is exact (s in [2^-100,
+  // FLT_MAX]), a uniform branch a row
+  __device__ __forceinline__ void store(int8_t* qr, const Group& g, int c0,
+                                        float s, float r) const {
+    if (s >= 0x1p-100f && s <= FLT_MAX)
+      store_as<true>(qr, g, c0, s, r);
+    else
+      store_as<false>(qr, g, c0, s, r);
+  }
+};
+
+// A held row: its amax, its scale, its bytes.
+template <typename T, bool VEC>
+__device__ __forceinline__ void finish_row(const Held<T, VEC>& h,
+                                           int8_t* qr, float* scale,
+                                           const Group& g, float* red) {
+  const float s = row_scale(h.amax(g, 0), g, red);
+  if (g.t == 0) *scale = s;
+  h.store(qr, g, 0, s, __frcp_rn(s));
+}
+
+template <typename T, bool VEC, bool HELD>
+__global__ void __launch_bounds__(MAX_THREADS)
+quantize_rows_kernel(const T* __restrict__ x, long long ldx,
+                     int8_t* __restrict__ x8, float* __restrict__ x_scale,
+                     int M, int K, int wpr) {
+  __shared__ float red[2][MAX_WPR];
+  Group g;
+  g.wpr = wpr;
+  g.threads = wpr * 32;
+  g.t = threadIdx.x % g.threads;
+  g.K = K;
+  // groups of several warps are whole blocks: their loops are the block's
+  const int per_block = blockDim.x / g.threads;
+  const int stride = gridDim.x * per_block;
+  int m = blockIdx.x * per_block + threadIdx.x / g.threads;
+  if constexpr (HELD) {
+    // two rows in registers: the next row's loads are in flight while this
+    // one is reduced, quantized and stored
+    Held<T, VEC> a, b;
+    if (m < M) a.load(x + m * ldx, g, 0);
+    while (m < M) {
+      if (m + stride < M) b.load(x + (m + stride) * ldx, g, 0);
+      finish_row(a, x8 + (long long)m * K, x_scale + m, g, red[0]);
+      m += stride;
+      if (m >= M) break;
+      if (m + stride < M) a.load(x + (m + stride) * ldx, g, 0);
+      finish_row(b, x8 + (long long)m * K, x_scale + m, g, red[1]);
+      m += stride;
+    }
+  } else {
+    const int nc = (K + VALS - 1) / VALS, window = CPL * g.threads;
+    for (int parity = 0; m < M; m += stride, parity ^= 1) {
+      const T* xr = x + m * ldx;
+      float a = 0.f;
+      for (int c0 = 0; c0 < nc; c0 += window) {
+        Held<T, VEC> h;
+        h.load(xr, g, c0);
+        a = fmaxf(a, h.amax(g, c0));
+      }
+      const float s = row_scale(a, g, red[parity]);
+      if (g.t == 0) x_scale[m] = s;
+      const float r = __frcp_rn(s);
+      for (int c0 = 0; c0 < nc; c0 += window) {
+        Held<T, VEC> h;
+        h.load(xr, g, c0);
+        h.store(x8 + (long long)m * K, g, c0, s, r);
+      }
+    }
+  }
+}
+
+template <typename T, bool VEC, bool HELD>
+cudaError_t launch(const T* x, long long ldx, int8_t* q, float* s, int M,
+                   int K, int wpr, cudaStream_t st) {
+  auto kernel = quantize_rows_kernel<T, VEC, HELD>;
+  const int threads = wpr == 1 ? BLOCK : wpr * 32;
+  const int per_block = threads / (wpr * 32);
+  // one wave: as many rows a group as keep every group on the card at once
+  // (the SMs times the blocks an SM holds of the kernel as compiled; asked
+  // once an instantiation, block size and device, and cached)
+  static int cached[64][4] = {};
+  int sms = 0, dev = 0;
+  cudaError_t err = windve_sm_count(&sms);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int slot = 0;
+  while ((1 << slot) < wpr) ++slot;               // wpr: 1, 2, 4 or 8
+  int per_sm = dev < 64 ? cached[dev][slot] : 0;
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) cached[dev][slot] = per_sm;
+  }
+  const long long most = std::max(1LL, (long long)sms * per_sm * per_block);
+  const long long rows = (M + most - 1) / most;
+  const long long groups = (M + rows - 1) / rows;
+  const long long blocks = (groups + per_block - 1) / per_block;
+  kernel<<<static_cast<unsigned>(blocks), threads, 0, st>>>(x, ldx, q, s, M,
+                                                            K, wpr);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* x, long long ldx, int8_t* q, float* s,
+                     int M, int K, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = K % VALS == 0 && ldx % V == 0
+                   && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int nc = (K + VALS - 1) / VALS;
+  // as few warps a row as hold it, CPL chunks a lane
+  int wpr = 1;
+  while (wpr < MAX_WPR && wpr * 32 * CPL < nc) wpr *= 2;
+  const bool held = wpr * 32 * CPL >= nc;
+  const T* xt = static_cast<const T*>(x);
+  auto run = vec ? (held ? launch<T, true, true> : launch<T, true, false>)
+                 : (held ? launch<T, false, true> : launch<T, false, false>);
+  return run(xt, ldx, q, s, M, K, wpr, st);
+}
+
+}  // namespace qr
 
 // ---------------------------------------------------------------------------
 // windve_w8a8_matmul: out[m, n] = (float(sum_k x8[m, k] * w8[k, n])
@@ -560,13 +859,13 @@ quantize_rows_kernel(const T* __restrict__ x, long long ldx,
 //   - Epilogue: with that column order a lane holds 4 neighbouring columns
 //     of a row in each chunk, so the result is stored 16 bytes (fp32) or
 //     8 bytes (bf16) at a time straight from the accumulators.
-// Tile rows: 128 where that still gives two blocks to each of an H100's
-// 132 SMs, else 64, so that bge's N = 1024 projections (96 blocks of 128
-// rows) fill the card in one wave.  The other tile size at each of bge's
-// shapes, fewer stages, longer K steps and warps of 64 x 64 were each
-// timed against this design (benchmarks/torch_kernel_variants.py; numbers
-// in PERF.md).  The wrapper refuses K > 133,000, past which K * 127^2
-// overflows int32.
+// Tile rows: 128 where that still gives two blocks to each of the card's
+// SMs (asked of the device: 132 on an H100), else 64, so that bge's
+// N = 1024 projections (96 blocks of 128 rows) fill the card in one wave.
+// The other tile size at each of bge's shapes, fewer stages, longer K
+// steps and warps of 64 x 64 were each timed against this design
+// (benchmarks/torch_kernel_variants.py; numbers in PERF.md).  The wrapper
+// refuses K > 133,000, past which K * 127^2 overflows int32.
 // ---------------------------------------------------------------------------
 namespace w8 {
 
@@ -575,7 +874,6 @@ constexpr int WM = 32, WN = 64;                 // a warp's tile
 constexpr int MT = WM / 16, WARPS_N = BN / WN;
 constexpr int XP = BK + 16;     // x8 bytes a row of the A tile: 80
 constexpr int WP = BN + 16;     // w8 bytes a row of the B tile: 144
-constexpr int SMS = 132;        // an H100's SMs
 
 template <int BM>
 struct Tile {
@@ -846,8 +1144,11 @@ template <typename TO>
 cudaError_t dispatch(const int8_t* x8, long long ldx, const int8_t* w,
                      const float* xs, const float* ws, void* out, int M,
                      int N, int K, cudaStream_t st) {
+  int sms = 0;
+  const cudaError_t err = windve_sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const long long big = (long long)((M + 127) / 128) * ((N + BN - 1) / BN);
-  auto run = big >= 2 * SMS ? dispatch_copies<TO, 128>
+  auto run = big >= 2 * sms ? dispatch_copies<TO, 128>
                             : dispatch_copies<TO, 64>;
   return run(x8, ldx, w, xs, ws, out, M, N, K, st);
 }
@@ -888,16 +1189,9 @@ extern "C" int windve_quantize_rows(const void* x, long long ldx, void* x8,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* q = static_cast<int8_t*>(x8);
   float* s = static_cast<float*>(x_scale);
-  if (dtype == 0) {
-    quantize_rows_kernel<float><<<M, QR_THREADS, 0, st>>>(
-        static_cast<const float*>(x), ldx, q, s, K);
-  } else if (dtype == 1) {
-    quantize_rows_kernel<__nv_bfloat16><<<M, QR_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), ldx, q, s, K);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == 0) return qr::dispatch<float>(x, ldx, q, s, M, K, st);
+  if (dtype == 1) return qr::dispatch<__nv_bfloat16>(x, ldx, q, s, M, K, st);
+  return cudaErrorInvalidValue;
 }
 
 // x8 (M, K) int8 with row stride ldx; w8 (K, N) int8 contiguous; x_scale

@@ -31,12 +31,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int BLOCK = 128;      // threads a block, unless a row takes more
 constexpr int MAX_TPR = 256;    // threads a row
 constexpr int CH = 8;           // chunks a thread holds
-constexpr int SMS = 132;        // an H100's SMs
 
 // V values of T as one load: a 16-byte chunk (VEC), or one element.
 template <typename T, bool VEC>
@@ -236,9 +237,12 @@ cudaError_t launch(const T* x, long long ldx, const float* scale, T* out,
   int tpr = 32;
   while (tpr < MAX_TPR && tpr * CH < nc) tpr *= 2;
   const bool fits = tpr * CH >= nc;
+  int sms = 0;
+  const cudaError_t err = windve_sm_count(&sms);
+  if (err != cudaSuccess) return err;
   // few rows: spread each over up to a block, until every SM has four warps
   while (tpr < BLOCK && tpr < nc
-         && static_cast<long long>(R) * tpr < 128LL * SMS)
+         && static_cast<long long>(R) * tpr < 128LL * sms)
     tpr *= 2;
   const int threads = tpr > BLOCK ? tpr : BLOCK;
   const int rows = threads / tpr;            // a block

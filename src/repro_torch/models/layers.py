@@ -14,7 +14,9 @@ tensor's device: the CUDA kernel on the card, the plain version on the CPU:
 
 A float projection is ``torch.matmul``; an int8 one (a quantized tree,
 ``models.quantize``) goes through ``repro_torch.kernels.quant_matmul``,
-which picks the same way.
+which picks the same way.  Under W8A8 an input that feeds several weights
+(q, k and v; gate and up) is quantized once for all of them
+(``dense_apply_many``).
 
 Numerics kept from the reference: GELU is the tanh form (``jax.nn.gelu``'s
 default), the layernorm variance is biased, norms compute in fp32 and cast
@@ -32,7 +34,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_w8a8
+from repro_torch.kernels.quant_matmul import (quant_matmul,
+                                              quant_matmul_w8a8,
+                                              quantize_rows, w8a8_matmul)
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssm_scan import ssm_scan
 
@@ -135,6 +139,19 @@ def dense_apply(p: Params, name: str, x: torch.Tensor,
     return quant_matmul(x, p[name], scale)
 
 
+def dense_apply_many(p: Params, names, x: torch.Tensor,
+                     act_quant: bool = False) -> list:
+    """``[dense_apply(p, name, x, act_quant) for name in names]``, with
+    ``x`` quantized once for all of them when every one takes the W8A8
+    route: ``quantize_rows`` is a pure function of ``x``, so each product
+    is bit for bit ``dense_apply``'s."""
+    if not (act_quant and all(n + "_scale" in p for n in names)):
+        return [dense_apply(p, n, x, act_quant) for n in names]
+    x8, x_scale = quantize_rows(x)
+    return [w8a8_matmul(x8, p[n], x_scale, p[n + "_scale"], out_dtype=x.dtype)
+            for n in names]
+
+
 def apply_norm(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm in plain ops (the reference has no layernorm kernel), or
     RMSNorm through the ``rmsnorm`` kernel; fp32 inside, x's dtype out."""
@@ -170,19 +187,17 @@ def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 
 
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                 kv_x: torch.Tensor, act_quant: bool = False):
+                 act_quant: bool = False):
     hd = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    q = dense_apply(p, "wq", x, act_quant)
-    k = dense_apply(p, "wk", kv_x, act_quant)
-    v = dense_apply(p, "wv", kv_x, act_quant)
+    q, k, v = dense_apply_many(p, ("wq", "wk", "wv"), x, act_quant)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     q = q.reshape(*x.shape[:-1], H, hd)
-    k = k.reshape(*kv_x.shape[:-1], KV, hd)
-    v = v.reshape(*kv_x.shape[:-1], KV, hd)
+    k = k.reshape(*x.shape[:-1], KV, hd)
+    v = v.reshape(*x.shape[:-1], KV, hd)
     return q, k, v
 
 
@@ -197,7 +212,7 @@ def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``kv_len = kv_mask.sum(-1)``.  ``act_quant``: W8A8 projections on a
     quantized tree.  ``return_kv`` also returns the (rotated) k and v,
     (B, S, KV, hd), for the decode cache."""
-    q, k, v = _project_qkv(p, cfg, x, x, act_quant)
+    q, k, v = _project_qkv(p, cfg, x, act_quant)
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -276,9 +291,8 @@ def attn_decode(p: Params, cfg: ModelConfig, x1: torch.Tensor, pos: int,
 def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor,
               act_quant: bool = False) -> torch.Tensor:
     if cfg.act == "silu":
-        g = F.silu(dense_apply(p, "w_gate", x, act_quant))
-        u = dense_apply(p, "w_up", x, act_quant)
-        return dense_apply(p, "w_down", g * u, act_quant)
+        g, u = dense_apply_many(p, ("w_gate", "w_up"), x, act_quant)
+        return dense_apply(p, "w_down", F.silu(g) * u, act_quant)
     h = F.gelu(dense_apply(p, "w_in", x, act_quant), approximate="tanh")
     return dense_apply(p, "w_out", h, act_quant)
 

@@ -119,7 +119,7 @@ class TestLayers:
         want = jL._project_qkv(jax.tree.map(jnp.asarray, p), jc,
                                jnp.asarray(x), jnp.asarray(x))
         got = L._project_qkv(embedder.params_from_numpy(p, "cpu"), tc,
-                             torch.from_numpy(x), torch.from_numpy(x))
+                             torch.from_numpy(x))
         for g, w in zip(got, want):
             assert tuple(g.shape) == w.shape
             np.testing.assert_allclose(g.numpy(), np.asarray(w),

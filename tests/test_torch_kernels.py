@@ -195,7 +195,7 @@ class TestRouting:
 
 
     @pytest.mark.parametrize("name", ["w8a8", "rmsnorm", "attention_fp32",
-                                      "ssm_scan"])
+                                      "ssm_scan", "quantize_rows"])
     def test_kernel_variant_substitutions_apply_to_the_sources(self, name):
         """benchmarks/torch_kernel_variants.py times variants made by
         literal substitutions in this tree's CUDA sources: each must still

@@ -279,7 +279,8 @@ def test_quant_matmul_element_copy_path_on_an_odd_row_stride(N, dtype):
 
 def _edge_rows(K):
     """Random rows at many scales, a zero row, a subnormal row, a row whose
-    amax / 127 is subnormal, and exact half-way ties (scale 1)."""
+    amax / 127 is subnormal, and exact half-way ties (scale 1; as many as K
+    holds)."""
     tiny = np.finfo(np.float32).tiny
     rng = np.random.default_rng(3)
     x = rng.standard_normal((12, K), np.float32)
@@ -289,17 +290,28 @@ def _edge_rows(K):
     x[3] = (rng.uniform(-1, 1, K) * tiny * 60).astype(np.float32)
     x[3, 0] = np.float32(tiny * 100)
     x[4] = 0.0
-    x[4, :8] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, 126.5, -126.5]
+    ties = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, 126.5, -126.5]
+    x[4, :8] = ties[:K]
     return x
 
 
+# (M, K): one row and a few; K of one value and off the 16-value chunk
+# (33, 1000, 4097; 4097 held by eight warps): the element path; bge's
+# projections (M 1536 at K 1024 and 4096), a warp or four warps a row;
+# enough rows at K 1024 that every group quantizes several in turn; and K
+# past the 8192 values eight warps hold, so each row is read twice, on the
+# vector path (8208, 16384) and the element path (8193)
+QR_SHAPES = [(M, K) for M in (1, 7) for K in (1, 33, 1000, 4097)] + [
+    (12, 70), (12, 1024), (1536, 1024), (1536, 4096), (20000, 1024),
+    (7, 8208), (300, 16384), (5, 8193)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(12, 70), (12, 1024), (1536, 1024),
-                                   (1536, 4096)], ids=str)
+@pytest.mark.parametrize("shape", QR_SHAPES, ids=str)
 def test_quantize_rows_kernel_is_bitwise_the_plain_version(shape, dtype):
     M, K = shape
     x = np.random.default_rng(4).standard_normal((M, K), np.float32)
-    x[:12] = _edge_rows(K)
+    x[:12] = _edge_rows(K)[:M]
     x = _on_card(x, dtype)
     before = quantize_rows.launches
     x8, s = quantize_rows(x)
@@ -307,6 +319,26 @@ def test_quantize_rows_kernel_is_bitwise_the_plain_version(shape, dtype):
     assert quantize_rows.launches == before + 1
     w8, ws = quantize_activations(x)
     assert x8.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.equal(x8, w8)
+    assert torch.equal(s.view(torch.int32), ws.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [1024, 4096, 8208])
+def test_quantize_rows_reads_an_unaligned_row_strided_view(K, dtype):
+    """A view one value into each row of a wider array: its base is not
+    16-byte aligned, so the kernel takes its element path, with the row
+    stride as it is (at K 8208 reading each row twice)."""
+    M = 300
+    x = np.random.default_rng(6).standard_normal((M, K + 3), np.float32)
+    x[:12, 1:K + 1] = _edge_rows(K)
+    view = _on_card(x, dtype)[:, 1:K + 1]
+    assert view.data_ptr() % 16 != 0 and view.stride(0) == K + 3
+    before = quantize_rows.launches
+    x8, s = quantize_rows(view)
+    torch.cuda.synchronize()
+    assert quantize_rows.launches == before + 1
+    w8, ws = quantize_activations(view.contiguous())
     assert torch.equal(x8, w8)
     assert torch.equal(s.view(torch.int32), ws.view(torch.int32))
 
@@ -475,7 +507,9 @@ def test_int8_embed_runs_with_tf32_switched_off(dtype):
         assert after["quant_matmul"] - before["quant_matmul"] == per_layer
     else:
         assert after["w8a8_matmul"] - before["w8a8_matmul"] == per_layer
-        assert after["quantize_rows"] - before["quantize_rows"] == per_layer
+        # q, k and v share one quantized input (layers.dense_apply_many)
+        assert (after["quantize_rows"] - before["quantize_rows"]
+                == 4 * cfg.num_layers)
 
 
 # ------------------------------------------------------------ LM kernels --
