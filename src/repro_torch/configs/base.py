@@ -4,7 +4,8 @@ A copy of the reference package's ``configs/base.py``, cut to what the
 embedding-serving and LM-generation paths read: ``ModelConfig`` with its
 derived sizes, its ``smoke()`` reduced variant and ``get_config``.  The
 registry lists the models the port serves so far: the two embedders and
-hymba-1.5b.
+the decoder LMs hymba-1.5b, stablelm-1.6b, starcoder2-7b and
+falcon-mamba-7b, each with its published dimensions.
 """
 from __future__ import annotations
 
@@ -122,6 +123,9 @@ ARCH_MODULES = {
     "bge-large-zh-v1.5": "bge_large_zh",
     "jina-v2": "jina_v2",
     "hymba-1.5b": "hymba_1_5b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "starcoder2-7b": "starcoder2_7b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 

@@ -1,0 +1,15 @@
+"""stablelm-1.6b — dense MHA LM [hf:stabilityai/stablelm-2-1_6b]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b",
+    arch_type="dense",
+    block="attn",
+    num_layers=24,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=5632,
+    vocab_size=100352,
+    source="hf:stabilityai/stablelm-2-1_6b",
+)

@@ -298,8 +298,7 @@ class ServingSimulator:
       bounded attempts; the exponential backoff is *priced* as simulated
       delay on the failed tier (its server sleeps it, like the engine's
       worker thread does);
-    * ``faults`` maps tier name -> fault model (the JAX package's
-      ``core/faults.py``, not ported yet)
+    * ``faults`` maps tier name -> :class:`~repro_torch.core.faults.FaultModel`
       — the DES-side injector matching the engine's ``FaultyBackend``
       (same ordinal-plan / wall-time-schedule vocabularies);
     * a ``TierSpec.breaker`` trips/recovers on the simulated clock via the
@@ -307,8 +306,8 @@ class ServingSimulator:
     * ``admission`` / ``brownout`` plug the engine's overload controllers
       (:class:`~repro_torch.core.admission.AdmissionController`,
       :class:`~repro_torch.core.health.BrownoutController`) into the shared
-      ``QueueManager`` — a capacity planner can sweep
-      them against load and outage traces.
+      ``QueueManager`` — the capacity planner (``repro_torch.core.planner``)
+      sweeps them against load and outage traces.
     """
 
     def __init__(self, npu: Optional[DeviceModel] = None,

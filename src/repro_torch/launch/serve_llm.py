@@ -8,9 +8,11 @@ and ``adaptive.attach`` refits the depths from live batch latencies::
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --smoke --device cpu
 
-``--arch hymba-1.5b`` (the default) runs at its published width with
-random weights from a seeded generator; ``--smoke`` takes the reduced
-config.  Prompts of 64 tokens, batches of up to 16 on the real tier.
+``--arch`` names a decoder the port serves: hymba-1.5b (the default),
+stablelm-1.6b, starcoder2-7b or falcon-mamba-7b.  Each runs at its
+published width with random weights from a seeded generator; ``--smoke``
+takes the reduced config.  Prompts of 64 tokens, batches of up to 16 on
+the real tier.
 """
 from __future__ import annotations
 

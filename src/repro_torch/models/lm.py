@@ -1,6 +1,7 @@
 """Decoder language model in PyTorch: the reference's ``models/lm.py`` on
-its default per-layer path, for the dense-attention, mamba and hybrid
-(hymba) blocks.
+its default per-layer path, for the dense-attention (stablelm-1.6b;
+starcoder2-7b with layernorm, GELU and a 4096-token window), mamba
+(falcon-mamba-7b) and hybrid (hymba-1.5b) blocks.
 
 * ``init_lm``     -- seeded params, ``blocks`` leaves stacked on a leading
                      layer dim, as in the reference tree;

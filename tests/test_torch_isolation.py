@@ -30,7 +30,10 @@ def test_every_module_imports_without_jax_or_repro():
     for m in ("quant_matmul.ops", "quant_matmul.ref"):
         assert f"repro_torch.kernels.{m}" in mods
     for m in ("models.lm", "models.api", "core.llm_backend",
-              "launch.serve_llm", "configs.hymba_1_5b"):
+              "launch.serve_llm", "configs.hymba_1_5b", "core.cost_model",
+              "core.affinity", "core.faults", "core.planner",
+              "configs.stablelm_1_6b", "configs.starcoder2_7b",
+              "configs.falcon_mamba_7b"):
         assert f"repro_torch.{m}" in mods
     for k in ("rmsnorm", "flash_decode", "ssm_scan"):
         for part in ("ops", "ref"):
@@ -46,6 +49,25 @@ def test_every_module_imports_without_jax_or_repro():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src")] + env.get("PYTHONPATH", "").split(os.pathsep))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_port_examples_load_without_jax_or_repro():
+    examples = sorted(os.path.join(ROOT, "examples", f) for f in
+                      os.listdir(os.path.join(ROOT, "examples"))
+                      if f.startswith("torch_") and f.endswith(".py"))
+    assert len(examples) == 3, examples
+    code = ("import importlib.util, sys\n"
+            f"for i, path in enumerate({examples!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -63,6 +63,12 @@ ATTN_CASES = [
     # window and a prompt longer than the window
     (16, 25, 5, 64, 64, True, 1024, [64] * 16),
     (2, 25, 5, 1100, 64, True, 1024, [1100, 1100]),
+    # stablelm-1.6b's prefill (32 heads of 64, G = 1, no window) and
+    # starcoder2-7b's (36 heads on 4 KV heads of 128, window 4096): the
+    # 64-token prompts, and one prompt longer than starcoder2's window
+    (16, 32, 32, 64, 64, True, 0, [64] * 16),
+    (16, 36, 4, 64, 128, True, 4096, [64] * 16),
+    (1, 36, 4, 4160, 128, True, 4096, [4160]),
 ]
 
 # (B, S, D, lens)
@@ -527,7 +533,10 @@ def _close(got, want, dtype):
 # but not of 8 (fp32 vector path, bf16 element path); rows too wide to hold
 # in registers (D 4099 on the element path, 20000 on the vector path)
 RMS_CASES = [(1024, 1600), (16, 1600), (7, 77), (5, 4096), (3, 8192),
-             (9, 1604), (2, 4099), (2, 20000)]
+             (9, 1604), (2, 4099), (2, 20000),
+             # the served rows: stablelm-1.6b's and falcon-mamba-7b's
+             # prefill (16 x 64) and decode (16)
+             (1024, 2048), (16, 2048), (1024, 4096), (16, 4096)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -573,7 +582,9 @@ def _ssm_inputs(B, S, DI, N, dtype, seed=5):
 # (B, S, DI, N): hymba-1.5b's prefill, then S and DI off the tile sizes,
 # then the 1100-token prompt at B 2 (69 time chunks, 200 blocks)
 SSM_CASES = [(16, 64, 3200, 16), (2, 50, 200, 16), (3, 33, 130, 16),
-             (1, 1, 7, 16), (2, 1100, 3200, 16)]
+             (1, 1, 7, 16), (2, 1100, 3200, 16),
+             # falcon-mamba-7b's prefill: d_inner 8192
+             (16, 64, 8192, 16)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -660,7 +671,10 @@ FD_CASES = [(16, 5, 5, 64, 80, 79, 1024), (2, 5, 5, 64, 1024, 1100, 1024),
             (1, 2, 4, 64, 200, 199, 0),
             # starcoder2-7b's decode: 36 heads on 4 KV heads of 128, window
             # 4096 (G 9: two passes of 8 query heads)
-            (1, 4, 9, 128, 4096, 5000, 4096)]
+            (1, 4, 9, 128, 4096, 5000, 4096),
+            # the served decode steps of stablelm-1.6b (32 KV heads, G 1,
+            # no window) and starcoder2-7b (G 9 x hd 128) on 80 slots
+            (16, 32, 1, 64, 80, 79, 0), (16, 4, 9, 128, 80, 79, 4096)]
 FD_DTYPES = [("float32", "float32"), ("bfloat16", "float32"),
              ("bfloat16", "bfloat16")]
 
@@ -794,6 +808,63 @@ def test_hymba_smoke_kernel_path_matches_plain_path(compute, monkeypatch):
     assert n["rmsnorm"] == 4 * (2 * Ly + 1)
     assert n["flash_attention"] == Ly and n["ssm_scan"] == Ly
     assert n["flash_decode"] == 3 * Ly
+    for name, ref in (("rmsnorm", rmsnorm_ref),
+                      ("flash_decode", decode_attention_ref),
+                      ("ssm_scan", ssm_scan_ref),
+                      ("flash_attention", attention_ref)):
+        monkeypatch.setattr(L, name, ref)
+    want = run()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= (1e-4 if compute == "float32" else 5e-2) * scale, err
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-7b",
+                                  "falcon-mamba-7b"])
+def test_decoder_smoke_kernel_path_matches_plain_path(arch, compute,
+                                                      monkeypatch):
+    """The other decoder families at smoke size (starcoder2's window 16
+    wraps its ring): each kernel of the family's path launched as often as
+    its layers ask, logits held against the plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    cfg = get_config(arch).smoke()
+    params = lm.init_lm(cfg, torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    cdt = getattr(torch, compute)
+    rng = np.random.default_rng(10)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24))
+                            .astype(np.int32)).cuda()
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2))
+                              .astype(np.int32)).cuda()
+
+    def run():
+        logits, cache = lm.prefill(params, cfg, toks, max_len=28,
+                                   cache_dtype=torch.float32,
+                                   compute_dtype=cdt)
+        out = [logits]
+        for t in range(3):
+            logits, cache = lm.decode_step(params, cfg, forced[t], cache,
+                                           compute_dtype=cdt)
+            out.append(logits)
+        return torch.stack(out).float()
+
+    before = launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    n = {k: after[k] - before[k] for k in after}
+    Ly = cfg.num_layers
+    norms = (Ly * (2 if cfg.d_ff else 1) + 1
+             if cfg.norm == "rmsnorm" else 0)
+    assert n["rmsnorm"] == 4 * norms
+    assert n["flash_attention"] == (Ly if cfg.has_attention else 0)
+    assert n["flash_decode"] == (3 * Ly if cfg.has_attention else 0)
+    assert n["ssm_scan"] == (Ly if cfg.has_ssm else 0)
     for name, ref in (("rmsnorm", rmsnorm_ref),
                       ("flash_decode", decode_attention_ref),
                       ("ssm_scan", ssm_scan_ref),

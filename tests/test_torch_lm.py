@@ -5,6 +5,10 @@ own weights carried over by ``params_from_numpy``: the layers it runs
 (RoPE, causal windowed attention with its k/v, mamba prefill and decode),
 then prefill of a 24-token prompt (the 16-slot ring wraps) and three decode
 steps on forced tokens, then the generation backend and the serving entry.
+The other decoder families the port serves (stablelm-1.6b: dense MHA;
+starcoder2-7b: GQA with layernorm, GELU and a window, 16 at smoke size, so
+its ring wraps too; falcon-mamba-7b: mamba only) go through the same
+prefill, decode steps and greedy generation at their smoke configs.
 
 fp32 compute is the tight oracle: the JAX model computes in fp32 when its
 ``layers.COMPUTE_DTYPE`` is patched (``monkeypatch``), and logits and
@@ -37,6 +41,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 ARCH = "hymba-1.5b"
+DECODERS = ("stablelm-1.6b", "starcoder2-7b", "falcon-mamba-7b")
 FP32_REL = 1e-4            # of the largest logit
 BF16_REL = 5e-2            # of the largest magnitude
 PROMPT, MAX_LEN, STEPS = 24, 28, 3
@@ -83,15 +88,20 @@ def assert_rel(got, want, rel, scale=None):
 
 
 # --------------------------------------------------------------- configs --
-def test_hymba_config_is_the_reference_config():
-    jc, tc = jax_get_config(ARCH), get_config(ARCH)
+def assert_config_is_the_reference_config(arch):
+    jc, tc = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     for prop in ("d_inner", "dt_rank", "has_attention", "has_ssm",
                  "has_decoder", "resolved_head_dim"):
         assert getattr(tc, prop) == getattr(jc, prop), prop
+    assert dataclasses.asdict(tc.smoke()) == dataclasses.asdict(jc.smoke())
+    return tc
+
+
+def test_hymba_config_is_the_reference_config():
+    tc = assert_config_is_the_reference_config(ARCH)
     assert (tc.d_inner, tc.dt_rank, tc.num_heads // tc.num_kv_heads) == \
         (3200, 100, 5)
-    assert dataclasses.asdict(tc.smoke()) == dataclasses.asdict(jc.smoke())
 
 
 def test_init_lm_has_the_reference_layout(hymba):
@@ -179,8 +189,14 @@ def smoke_run(request, hymba):
     decode steps on forced tokens, through both packages in one compute
     dtype.  Returns (dtype name, [(jax logits, jax cache), ...], the same
     from the port)."""
-    jc, tc, params, tree = hymba
-    jdt, tdt = DTYPES[request.param]
+    return (request.param,) + run_both_packages(*hymba, request.param)
+
+
+def run_both_packages(jc, tc, params, tree, dtype):
+    """([(jax logits, jax cache), ...], the same from the port) for the
+    prefill of a 24-token prompt and three forced decode steps in
+    ``dtype``'s compute."""
+    jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(3)
     toks = rng.integers(0, tc.vocab_size, (2, PROMPT)).astype(np.int32)
     forced = rng.integers(0, tc.vocab_size, (STEPS, 2)).astype(np.int32)
@@ -207,30 +223,38 @@ def smoke_run(request, hymba):
             {k: v.clone() if torch.is_tensor(v) else v
              for k, v in cache.items()}, compute_dtype=tdt)
         port_out.append((logits, cache))
-    return request.param, jax_out, port_out
+    return jax_out, port_out
 
 
-def test_prefill_and_decode_logits_match_jax(smoke_run):
-    name, jax_out, port_out = smoke_run
+def assert_logits_match(name, jax_out, port_out):
+    rel = FP32_REL if name == "float32" else BF16_REL
     for (want, _), (got, _) in zip(jax_out, port_out):
         assert got.dtype == DTYPES[name][1]
-        rel = FP32_REL if name == "float32" else BF16_REL
         assert_rel(got.float().numpy(), want, rel)
 
 
-def test_prefill_and_decode_caches_match_jax(smoke_run):
-    name, jax_out, port_out = smoke_run
+def test_prefill_and_decode_logits_match_jax(smoke_run):
+    assert_logits_match(*smoke_run)
+
+
+def assert_caches_match(name, jax_out, port_out, leaves):
     for (want_logits, want), (_, got) in zip(jax_out, port_out):
         assert got["pos"] == int(want["pos"])
-        np.testing.assert_array_equal(got["kpos"].numpy(), want["kpos"])
+        if "kpos" in want:
+            np.testing.assert_array_equal(got["kpos"].numpy(), want["kpos"])
         assert sorted(got) == sorted(want)
-        for key in ("k", "v", "ssm", "conv"):
+        for key in leaves:
             assert got[key].dtype == torch.float32
             if name == "float32":
                 assert_rel(got[key].numpy(), want[key], FP32_REL,
                            scale=np.abs(want_logits).max())
             else:
                 assert_rel(got[key].numpy(), want[key], BF16_REL)
+
+
+def test_prefill_and_decode_caches_match_jax(smoke_run):
+    name, jax_out, port_out = smoke_run
+    assert_caches_match(name, jax_out, port_out, ("k", "v", "ssm", "conv"))
 
 
 def test_ring_slots_hold_the_last_window_of_positions(smoke_run):
@@ -242,9 +266,9 @@ def test_ring_slots_hold_the_last_window_of_positions(smoke_run):
 
 
 # --------------------------------------------------- backend and serving --
-def test_greedy_tokens_equal_the_jax_backend(hymba, monkeypatch):
-    jc, tc, params, tree = hymba
-    monkeypatch.setattr(jL, "COMPUTE_DTYPE", jnp.float32)
+def assert_greedy_tokens_equal(jc, tc, params, tree):
+    """fp32 greedy continuations of the port's backend equal the JAX
+    backend's (the caller patches the reference's compute dtype)."""
     payloads = make_queries(3, tc.vocab_size, length=20, seed=4)
     qs = [Query(qid=i, payload=p, length=len(p)) for i, p in enumerate(payloads)]
     qs.append(Query(qid=3, length=9))                  # no payload: a ramp
@@ -258,6 +282,11 @@ def test_greedy_tokens_equal_the_jax_backend(hymba, monkeypatch):
     for g, w in zip(got, want):
         assert g.dtype == np.int32 and g.shape == (5,)
         np.testing.assert_array_equal(g, w)
+
+
+def test_greedy_tokens_equal_the_jax_backend(hymba, monkeypatch):
+    monkeypatch.setattr(jL, "COMPUTE_DTYPE", jnp.float32)
+    assert_greedy_tokens_equal(*hymba)
 
 
 def test_empty_prompt_is_refused_as_by_the_jax_backend(hymba, monkeypatch):
@@ -305,3 +334,109 @@ def test_serve_llm_main_answers_on_the_cpu():
     assert real, "the real tier served nothing"
     for o in real:
         assert o.shape == (4,) and ((o >= 0) & (o < 512)).all()
+
+
+# ------------------------------------- the other decoder families (smoke) --
+@pytest.mark.parametrize("arch", DECODERS)
+def test_decoder_config_is_the_reference_config(arch):
+    tc = assert_config_is_the_reference_config(arch)
+    # the published widths (layers, d_model, heads / KV heads, head dim,
+    # d_ff, vocab, window, d_inner, dt_rank)
+    want = {"stablelm-1.6b": (24, 2048, 32, 32, 64, 5632, 100352, 0),
+            "starcoder2-7b": (32, 4608, 36, 4, 128, 18432, 49152, 4096),
+            "falcon-mamba-7b": (64, 4096, 0, 0, 0, 0, 65024, 0)}[arch]
+    assert (tc.num_layers, tc.d_model, tc.num_heads, tc.num_kv_heads,
+            tc.resolved_head_dim, tc.d_ff, tc.vocab_size,
+            tc.sliding_window) == want
+    if arch == "falcon-mamba-7b":
+        assert (tc.d_inner, tc.ssm_state, tc.dt_rank) == (8192, 16, 256)
+    if arch == "starcoder2-7b":
+        assert (tc.act, tc.norm) == ("gelu", "layernorm")
+
+
+@pytest.fixture(scope="module")
+def decoders():
+    """arch -> (jax cfg, port cfg, jax params, the same params as numpy),
+    smoke configs, built once."""
+    out = {}
+    for arch in DECODERS:
+        jc, tc = jax_get_config(arch).smoke(), get_config(arch).smoke()
+        params = japi.init_params(jax.random.PRNGKey(0), jc)
+        out[arch] = (jc, tc, params, jax.tree.map(np.asarray, params))
+    return out
+
+
+@pytest.fixture(scope="module",
+                params=[(a, d) for a in DECODERS for d in sorted(DTYPES)],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def decoder_run(request, decoders):
+    arch, dtype = request.param
+    return (arch, dtype) + run_both_packages(*decoders[arch], dtype)
+
+
+def test_decoder_logits_match_jax(decoder_run):
+    assert_logits_match(*decoder_run[1:])
+
+
+def test_decoder_caches_match_jax(decoder_run):
+    arch, name, jax_out, port_out = decoder_run
+    leaves = {"stablelm-1.6b": ("k", "v"), "starcoder2-7b": ("k", "v"),
+              "falcon-mamba-7b": ("ssm", "conv")}[arch]
+    assert set(port_out[0][1]) == set(leaves) | {"pos"} | (
+        {"kpos"} if "k" in leaves else set())
+    assert_caches_match(name, jax_out, port_out, leaves)
+    if arch == "starcoder2-7b":            # 24 + 3 positions, 16 slots
+        kpos = port_out[-1][1]["kpos"].numpy()
+        assert sorted(kpos) == list(range(PROMPT + STEPS - 16,
+                                          PROMPT + STEPS))
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_decoder_greedy_tokens_equal_the_jax_backend(arch, decoders,
+                                                     monkeypatch):
+    monkeypatch.setattr(jL, "COMPUTE_DTYPE", jnp.float32)
+    assert_greedy_tokens_equal(*decoders[arch])
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_serve_llm_serves_each_decoder_on_the_cpu(arch):
+    from repro_torch.launch import serve_llm
+
+    outs = serve_llm.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--queries", "10", "--new-tokens", "3"])
+    real = [o for o in outs if o.dtype.kind in "iu"]
+    assert len(outs) == 10 and real, "the real tier served nothing"
+    for o in real:
+        assert o.shape == (3,) and ((o >= 0) & (o < 512)).all()
+
+
+def test_deep_random_mamba_drifts_in_bf16_in_both_packages():
+    """falcon-mamba-7b's depth (64 mamba layers) at its smoke width, the
+    reference's weights: in fp32 the port computes the reference's prefill
+    logits; in bf16 neither package stays near its own fp32 logits, since
+    64 random layers amplify rounding.  So a bf16 cosine bar says nothing
+    of a kernel at this depth, and ``chip_smoke.py`` holds falcon-mamba's
+    kernel-vs-plain logits in fp32 compute."""
+    jc = jax_get_config("falcon-mamba-7b").smoke().replace(num_layers=64)
+    tc = get_config("falcon-mamba-7b").smoke().replace(num_layers=64)
+    params = japi.init_params(jax.random.PRNGKey(0), jc)
+    tp = port_params(jax.tree.map(np.asarray, params))
+    toks = np.random.default_rng(3).integers(0, 512, (2, 24)).astype(np.int32)
+    got = {}
+    for name, (jdt, tdt) in DTYPES.items():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jL, "COMPUTE_DTYPE", jdt)
+            logits, _ = jax.jit(lambda p, t: jlm.prefill(
+                p, jc, t, cache_dtype=jnp.float32))(params, toks)
+        got[f"jax_{name}"] = np.asarray(logits, np.float32)
+        logits, _ = lm.prefill(tp, tc, torch.from_numpy(toks),
+                               cache_dtype=torch.float32, compute_dtype=tdt)
+        got[f"port_{name}"] = logits.float().numpy()
+
+    def min_cos(a, b):
+        return float(((a * b).sum(-1) / np.linalg.norm(a, axis=-1)
+                      / np.linalg.norm(b, axis=-1)).min())
+
+    assert min_cos(got["port_float32"], got["jax_float32"]) >= 0.99999
+    for pkg in ("jax", "port"):
+        assert min_cos(got[f"{pkg}_bfloat16"], got[f"{pkg}_float32"]) < 0.9
