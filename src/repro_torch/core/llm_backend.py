@@ -26,9 +26,12 @@ class LMGenerateBackend(Backend):
     Prompts are right-aligned in a window of ``max_prompt`` tokens padded
     with id 1 (a query without a payload gets a deterministic ramp of ids);
     one prefill then ``max_new_tokens - 1`` decode steps, the argmax at
-    each.  The cache is fp32, as in the reference backend; ``compute_dtype``
-    is the activation dtype (None: ``layers.COMPUTE_DTYPE``, bf16).  The
-    only device-to-host copy of a batch is the final copy of its tokens.
+    each.  The cache is fp32 and, as in the reference backend, holds the
+    prompt, the new tokens and, for a vision frontend, ``num_patches``
+    slots more (the prompt carries no patches there either).
+    ``compute_dtype`` is the activation dtype (None:
+    ``layers.COMPUTE_DTYPE``, bf16).  The only device-to-host copy of a
+    batch is the final copy of its tokens.
     """
 
     def __init__(self, cfg, params, max_prompt: int = 64,
@@ -43,6 +46,10 @@ class LMGenerateBackend(Backend):
         self.name = f"torch-lm-{self.device.type}/{cfg.name}"
         self.params_nbytes = sum(t.numel() * t.element_size()
                                  for t in _leaves(params))
+        # slots a prompt's cache holds past its tokens: the new tokens
+        # and, as in the reference backend, a vision frontend's patches
+        self.extra_slots = max_new_tokens + (
+            cfg.num_patches if cfg.frontend == "vision" else 0)
 
     def prompt_tokens(self, queries: Sequence[Query]) -> np.ndarray:
         """(B, max_prompt) int32: each prompt right-aligned, pad id 1.
@@ -76,7 +83,7 @@ class LMGenerateBackend(Backend):
         steps = []
         with torch.inference_mode():
             logits, cache = lm.prefill(
-                params, cfg, toks, max_len=toks.shape[1] + self.max_new,
+                params, cfg, toks, max_len=toks.shape[1] + self.extra_slots,
                 cache_dtype=torch.float32, compute_dtype=cdt)
             out = [logits.argmax(-1).to(torch.int32)]
             steps.append(logits)

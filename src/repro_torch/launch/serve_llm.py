@@ -9,10 +9,15 @@ and ``adaptive.attach`` refits the depths from live batch latencies::
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --smoke --device cpu
 
 ``--arch`` names a decoder the port serves: hymba-1.5b (the default),
-stablelm-1.6b, starcoder2-7b or falcon-mamba-7b.  Each runs at its
+stablelm-1.6b, starcoder2-7b, falcon-mamba-7b, internlm2-20b,
+granite-moe-3b-a800m, qwen3-moe-30b-a3b or internvl2-2b.  Each runs at its
 published width with random weights from a seeded generator; ``--smoke``
-takes the reduced config.  Prompts of 64 tokens, batches of up to 16 on
-the real tier.
+takes the reduced config.  ``--weights bf16`` keeps the weights in bf16
+(the default fp32 casts them to the bf16 compute at every use; the values
+used are the same): internlm2-20b and qwen3-moe-30b-a3b fit one 80 GB card
+only so.  ``--opt moe_row_dispatch=1`` dispatches an MoE block's tokens
+per batch row.  Prompts of 64 tokens, batches of up to 16 on the real
+tier.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch import perf_flags
+from repro_torch.configs import ARCH_MODULES, get_config
 from repro_torch.core.adaptive import OnlineCalibrator, attach
 from repro_torch.core.llm_backend import LMGenerateBackend
 from repro_torch.core.routing import CPU, NPU, TierSpec
@@ -36,20 +42,23 @@ from repro_torch.models import api
 MAX_PROMPT = 64          # prompts are right-aligned in this window
 DEPTH = 16               # the real tier's queue depth, its largest batch
 NPU_DEPTH = 6            # the modeled pool's starting depth
+WEIGHTS = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 def build_engine(arch: str = "hymba-1.5b", smoke: bool = False,
-                 device="cuda", new_tokens: int = 16, slo: float = 30.0):
+                 device="cuda", new_tokens: int = 16, slo: float = 30.0,
+                 weights_dtype=torch.float32):
     """(engine, cfg, calibrator): the real generation tier (``CPU``, as in
     the reference's example and the port's embedding server) on
     ``device`` and the modeled pool (``NPU``), with the online calibrator
-    attached.  Weights are random, from a generator seeded with 0."""
+    attached.  Weights are random, of ``weights_dtype``, from a generator
+    seeded with 0."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
     dev = resolve_device(device)
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                             device=dev)
+                             device=dev, dtype=weights_dtype)
     real = LMGenerateBackend(cfg, params, max_prompt=MAX_PROMPT,
                              max_new_tokens=new_tokens, device=dev)
     modeled = ModeledBackend(DeviceModel("tpu-pool", beta=0.05, b=0.01, a=0.0),
@@ -65,21 +74,29 @@ def build_engine(arch: str = "hymba-1.5b", smoke: bool = False,
 
 def main(argv: Optional[List[str]] = None) -> List[np.ndarray]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="hymba-1.5b")
+    ap.add_argument("--arch", default="hymba-1.5b",
+                    choices=[a for a in ARCH_MODULES
+                             if get_config(a).has_decoder])
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family config")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--weights", choices=sorted(WEIGHTS), default="fp32",
+                    help="the resident weights' dtype")
+    ap.add_argument("--opt", default="",
+                    help="perf flags, k=v,... (e.g. moe_row_dispatch=1)")
     ap.add_argument("--queries", type=int, default=12)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--slo", type=float, default=30.0)
     args = ap.parse_args(argv)
+    perf_flags.set_flags(**perf_flags.parse_opt(args.opt))
 
     engine, cfg, cal = build_engine(args.arch, smoke=args.smoke,
                                     device=args.device,
-                                    new_tokens=args.new_tokens, slo=args.slo)
+                                    new_tokens=args.new_tokens, slo=args.slo,
+                                    weights_dtype=WEIGHTS[args.weights])
     real = engine.backends[CPU]
     print(f"[serve-llm] {cfg.name}: generation backend {real.name}, "
-          f"{real.params_nbytes} bytes of params")
+          f"{real.params_nbytes} bytes of {args.weights} params")
     try:
         queries = make_queries(args.queries, cfg.vocab_size, MAX_PROMPT)
         t0 = time.monotonic()

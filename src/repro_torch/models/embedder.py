@@ -59,14 +59,21 @@ def params_from_numpy(tree: Mapping[str, Any], device="cuda") -> Params:
     stacked on the layer dimension, as in ``tests/golden/golden_embed.npz``)
     -> the same nesting of tensors on ``device``, values and dtypes kept.
     An already quantized tree comes over as it is: int8 weights stay int8
-    and their ``_scale`` siblings stay fp32."""
+    and their ``_scale`` siblings stay fp32.  A bfloat16 leaf (numpy's
+    ``ml_dtypes.bfloat16``, which torch cannot read) comes over bit for bit
+    through a 16-bit integer view."""
     out: Params = {}
     for name, leaf in tree.items():
         if isinstance(leaf, Mapping):
             out[name] = params_from_numpy(leaf, device)
+            continue
+        # np.array copies: the file's arrays may be read-only
+        a = np.array(leaf)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
         else:
-            # np.array copies: the file's arrays may be read-only
-            out[name] = torch.from_numpy(np.array(leaf)).to(device)
+            t = torch.from_numpy(a)
+        out[name] = t.to(device)
     return out
 
 

@@ -1,7 +1,7 @@
 """Building blocks of the embedder trunk and the decoder LM, in PyTorch.
 
 The parts of the reference's ``models/layers.py`` that the bge/jina
-embedder and the hymba LM run, as plain functions on tensors over the same
+embedder and the decoder LMs run, as plain functions on tensors over the same
 nested param dicts (``init_*`` build them, stacked on a leading ``lead``
 shape, from a ``torch.Generator``).  Each call that the reference runs as a
 TPU kernel goes through the port's kernel router, which picks by the
@@ -16,7 +16,9 @@ A float projection is ``torch.matmul``; an int8 one (a quantized tree,
 ``models.quantize``) goes through ``repro_torch.kernels.quant_matmul``,
 which picks the same way.  Under W8A8 an input that feeds several weights
 (q, k and v; gate and up) is quantized once for all of them
-(``dense_apply_many``).
+(``dense_apply_many``).  The MoE experts' products are batched matrix
+products (``torch.einsum``), as the reference computes them outside any
+kernel.
 
 Numerics kept from the reference: GELU is the tanh form (``jax.nn.gelu``'s
 default), the layernorm variance is biased, norms compute in fp32 and cast
@@ -31,6 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
@@ -47,19 +50,23 @@ COMPUTE_DTYPE = torch.bfloat16
 
 
 # ----------------------------------------------------------------------------
-# initialisers: the reference's, with torch's random numbers.  Each leaf is
-# drawn on the generator's device with a leading ``lead`` shape (the layer
-# stack) and moved to ``device``.
+# initialisers: the reference's, with torch's random numbers.  Each leaf has
+# a leading ``lead`` shape (the layer stack) and lives on ``device``.
 # ----------------------------------------------------------------------------
 
 def dense_init(g: torch.Generator, shape: tuple, lead: tuple, dtype, device,
                scale: Optional[float] = None) -> torch.Tensor:
-    """N(0, scale^2), scale 1/sqrt(fan_in) unless given."""
+    """N(0, scale^2), scale 1/sqrt(fan_in) unless given.  Drawn in fp32 on
+    the generator's device one ``shape`` slice (one layer) at a time into a
+    tensor of ``dtype``, so the fp32 draw never holds more than one layer:
+    a stacked expert leaf of qwen3-moe-30b-a3b is 38.7 GB in fp32."""
     if scale is None:
         scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
-    w = torch.randn(lead + shape, generator=g, device=g.device,
-                    dtype=torch.float32) * scale
-    return w.to(device=device, dtype=dtype)
+    w = torch.empty(lead + shape, dtype=dtype, device=device)
+    for part in w.view((-1,) + shape):
+        part.copy_(torch.randn(shape, generator=g, device=g.device,
+                               dtype=torch.float32) * scale)
+    return w
 
 
 def init_norm(cfg: ModelConfig, lead: tuple, dtype, device) -> Params:
@@ -154,9 +161,10 @@ def dense_apply_many(p: Params, names, x: torch.Tensor,
 
 def apply_norm(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm in plain ops (the reference has no layernorm kernel), or
-    RMSNorm through the ``rmsnorm`` kernel; fp32 inside, x's dtype out."""
+    RMSNorm through the ``rmsnorm`` kernel, which takes an fp32 scale (a
+    bf16 tree's comes over exactly); fp32 inside, x's dtype out."""
     if cfg.norm != "layernorm":
-        return rmsnorm(x, p["scale"], cfg.norm_eps)
+        return rmsnorm(x, p["scale"].float(), cfg.norm_eps)
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)
@@ -295,6 +303,104 @@ def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor,
         return dense_apply(p, "w_down", F.silu(g) * u, act_quant)
     h = F.gelu(dense_apply(p, "w_in", x, act_quant), approximate="tanh")
     return dense_apply(p, "w_out", h, act_quant)
+
+
+# ----------------------------------------------------------------------------
+# MoE: top-k routing and capacity-based gather dispatch, the reference's
+# ``apply_moe`` (one global dispatch) and ``_apply_moe_row`` (per batch row).
+# Its ``_mesh_axis_names`` and ``_moe_constrain`` are GSPMD layout hints
+# that do nothing without a device mesh; they are not ported.
+# ----------------------------------------------------------------------------
+
+def init_moe(g: torch.Generator, cfg: ModelConfig, lead: tuple, dtype,
+             device) -> Params:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {name: dense_init(g, shape, lead, dtype, device)
+            for name, shape in (("router", (D, E)), ("w_gate", (E, D, Fd)),
+                                ("w_up", (E, D, Fd)), ("w_down", (E, Fd, D)))}
+
+
+def moe_route(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """Router of x (R, N, D): (fp32 probs (R, N, E), normalised gate
+    weights (R, N, K), expert ids (R, N, K)).  The top K come from a stable
+    descending sort, so among equal probabilities the lower expert id comes
+    first, as in ``lax.top_k``: bf16 router logits tie often (torch.topk
+    promises no order for ties)."""
+    logits = (x @ p["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    K = cfg.experts_per_token
+    gate_w, eidx = gate_w[..., :K], eidx[..., :K]
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_w, eidx
+
+
+def moe_slots(flat_e: torch.Tensor, E: int, cap: int):
+    """(slot, keep) of each assignment of flat_e (R, N*K) expert ids, taken
+    token-major and k-minor in each row: its place in its expert's queue
+    (a stable sort ranks assignments of one expert in that order), kept if
+    the place is below ``cap``; slot = expert * cap + place, or the
+    overflow row E * cap when dropped."""
+    R, n = flat_e.shape
+    order = torch.sort(flat_e, dim=1, stable=True).indices
+    sorted_e = torch.gather(flat_e, 1, order)
+    # first place of each expert in the sorted order: the exclusive cumsum
+    # of its count
+    counts = torch.zeros((R, E), dtype=torch.int64, device=flat_e.device)
+    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 1) - counts
+    place_sorted = (torch.arange(n, device=flat_e.device)[None]
+                    - torch.gather(starts, 1, sorted_e))
+    place = torch.empty_like(place_sorted).scatter_(1, order, place_sorted)
+    keep = place < cap
+    slot = torch.where(keep, flat_e * cap + place,
+                       torch.full_like(place, E * cap))
+    return slot, keep
+
+
+def _apply_moe_row(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """MoE over x (B, S, D), each batch row dispatched on its own: an
+    expert takes at most cap = ceil(S * K / E * capacity_factor) of a
+    row's assignments, the rest are dropped.  Returns (y (B, S, D), the
+    Switch load-balance loss, fp32)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    probs, gate_w, eidx = moe_route(p, cfg, x)
+    # Switch-style: E * sum(share of assignments * mean probability)
+    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, eidx.reshape(-1), torch.ones(eidx.numel(), device=x.device))
+    aux = E * (probs.mean((0, 1)) * (ce / (B * S * K))).sum()
+
+    cap = int(math.ceil(S * K / E * cfg.capacity_factor))
+    slot, keep = moe_slots(eidx.reshape(B, S * K), E, cap)
+    rows = torch.arange(B, device=x.device)[:, None]
+    # row E * cap takes every dropped assignment.  On the card an
+    # index_put_ with repeated indices writes them in no set order; the
+    # row is discarded, so which one lands does not matter.
+    dispatched = x.new_zeros((B, E * cap + 1, D))
+    dispatched[rows, slot] = x.repeat_interleave(K, dim=1)
+    ein = dispatched[:, :E * cap].reshape(B, E, cap, D)
+    g = F.silu(torch.einsum("becd,edf->becf", ein,
+                            p["w_gate"].to(ein.dtype)))
+    u = torch.einsum("becd,edf->becf", ein, p["w_up"].to(ein.dtype))
+    eout = torch.einsum("becf,efd->becd", g * u, p["w_down"].to(ein.dtype))
+    eflat = torch.cat([eout.reshape(B, E * cap, D),
+                       eout.new_zeros((B, 1, D))], dim=1)
+    w = (gate_w.reshape(B, S * K) * keep).to(x.dtype)
+    y = (eflat[rows, slot] * w[..., None]).reshape(B, S, K, D).sum(2)
+    return y, aux
+
+
+def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """MoE over x (B, S, D): (y (B, S, D), load-balance loss).  One global
+    dispatch over all B * S tokens (capacity from all of them), or, under
+    the ``moe_row_dispatch`` flag, one a batch row (``_apply_moe_row``).
+    The global dispatch is the per-row one on a single row of every token,
+    which computes the reference's one-hot cumsum ranking."""
+    if perf_flags.FLAGS.moe_row_dispatch:
+        return _apply_moe_row(p, cfg, x)
+    y, aux = _apply_moe_row(p, cfg, x.reshape(1, -1, x.shape[-1]))
+    return y.reshape(x.shape), aux
 
 
 # ----------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Decoder language model in PyTorch: the reference's ``models/lm.py`` on
-its default per-layer path, for the dense-attention (stablelm-1.6b;
-starcoder2-7b with layernorm, GELU and a 4096-token window), mamba
-(falcon-mamba-7b) and hybrid (hymba-1.5b) blocks.
+its default per-layer path, for the dense-attention (stablelm-1.6b,
+internlm2-20b; starcoder2-7b with layernorm, GELU and a 4096-token
+window), MoE (granite-moe-3b-a800m, qwen3-moe-30b-a3b), mamba
+(falcon-mamba-7b) and hybrid (hymba-1.5b) blocks, and the VLM internvl2-2b,
+whose stub patch embeddings ``prefill`` takes as ``extra_embed``.
 
 * ``init_lm``     -- seeded params, ``blocks`` leaves stacked on a leading
                      layer dim, as in the reference tree;
@@ -17,9 +19,10 @@ device-to-host copy.  ``decode_step`` writes the new token's state into the
 cache's tensors in place (the reference returns new arrays) and returns the
 cache with ``pos`` advanced.
 
-The reference's ``decode_fori`` and ``decode_shard_map`` flags are XLA
-layouts of the same computation and are not ported; MoE blocks and the VLM
-frontend belong to later slices of the port and raise.
+An MoE block's FFN is ``layers.apply_moe`` in prefill and decode alike,
+its load-balance loss dropped, as in the reference.  The reference's
+``decode_fori`` and ``decode_shard_map`` flags are XLA layouts of the same
+computation and are not ported.
 """
 from __future__ import annotations
 
@@ -37,19 +40,13 @@ __all__ = ["init_lm", "init_cache", "prefill", "decode_step", "cache_len",
            "params_from_numpy"]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE blocks belong to a later slice of the "
-                                  "port (ROADMAP.md Queue 1)")
-
-
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
             dtype=torch.float32) -> Params:
-    """Random LM params, drawn from ``generator`` on its own device and
-    moved to ``device``: the reference's layout and initialisers (dense
-    N(0, 1/fan_in), embedding N(0, 0.02^2), mamba's A_log = log(1..N),
-    dt_bias = softplus^-1(1), D = 1), with torch's random numbers."""
-    _check_supported(cfg)
+    """Random LM params of ``dtype`` on ``device``, drawn from
+    ``generator`` on its own device one layer at a time: the reference's
+    layout and initialisers (dense N(0, 1/fan_in), embedding N(0, 0.02^2),
+    mamba's A_log = log(1..N), dt_bias = softplus^-1(1), D = 1), with
+    torch's random numbers."""
     lead = (cfg.num_layers,)
     blocks: Params = {"norm1": L.init_norm(cfg, lead, dtype, device)}
     if cfg.has_attention:
@@ -58,7 +55,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
         blocks["mamba"] = L.init_mamba(generator, cfg, lead, dtype, device)
     if cfg.d_ff:
         blocks["norm2"] = L.init_norm(cfg, lead, dtype, device)
-        blocks["ffn"] = L.init_mlp(generator, cfg, lead, dtype, device)
+        blocks["ffn"] = (L.init_moe if cfg.is_moe else L.init_mlp)(
+            generator, cfg, lead, dtype, device)
     p = {"embed": L.dense_init(generator, (cfg.vocab_size, cfg.d_model), (),
                                dtype, device, scale=0.02),
          "blocks": blocks,
@@ -70,9 +68,13 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-           pos_offset: int, compute_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+           pos_offset: int, compute_dtype,
+           extra_embed: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     h = params["embed"][tokens.long()].to(compute_dtype)
-    positions = torch.arange(pos_offset, pos_offset + tokens.shape[1],
+    if extra_embed is not None:          # VLM: prepend stub patch embeddings
+        h = torch.cat([extra_embed.to(h.dtype), h], dim=1)
+    positions = torch.arange(pos_offset, pos_offset + h.shape[1],
                              dtype=torch.int32, device=tokens.device)
     if not cfg.rope_theta:               # learned/absolute-position families
         h = h + L.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
@@ -88,7 +90,10 @@ def _unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def _mlp(bp: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if not cfg.d_ff:
         return h
-    return h + L.apply_mlp(bp["ffn"], cfg, L.apply_norm(bp["norm2"], cfg, h))
+    hin = L.apply_norm(bp["norm2"], cfg, h)
+    if cfg.is_moe:
+        return h + L.apply_moe(bp["ffn"], cfg, hin)[0]
+    return h + L.apply_mlp(bp["ffn"], cfg, hin)
 
 
 def _mix(cfg: ModelConfig, h, a, m) -> torch.Tensor:
@@ -124,11 +129,16 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return cache
 
 
-def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            extra_embed: Optional[torch.Tensor] = None, *,
             cache_dtype=torch.bfloat16, max_len: Optional[int] = None,
             compute_dtype=None) -> Tuple[torch.Tensor, Params]:
-    """Process the prompt tokens (B, S); return (last-position logits (B, V)
-    in the compute dtype, cache).
+    """Process the prompt tokens (B, S_text); return (last-position logits
+    (B, V) in the compute dtype, cache).
+
+    ``extra_embed`` (B, P, D), a VLM's patch embeddings, is prepended to
+    the token embeddings in the compute dtype: the prompt is then S = P +
+    S_text positions long, and the cache and ``pos`` count the patches.
 
     ``max_len`` sizes the cache for the decode that follows (a windowed
     config clamps it to the window).  The cache keeps the prompt's last
@@ -136,10 +146,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     when a windowed ring is already full the slots are rotated so that
     decode's write to slot ``pos % Sc`` lines up.  ``compute_dtype`` is the
     activation dtype (None: ``layers.COMPUTE_DTYPE``, bf16)."""
-    _check_supported(cfg)
     cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
-    h, positions = _embed(params, cfg, tokens, 0, cdt)
-    B, S = tokens.shape
+    h, positions = _embed(params, cfg, tokens, 0, cdt, extra_embed)
+    B, S = h.shape[:2]
     cache = init_cache(cfg, B, max(S, max_len or S), cache_dtype, tokens.device)
     if cfg.has_attention:
         Sc = cache["k"].shape[2]
@@ -174,7 +183,6 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     """One decode step.  token: (B,) ints at position ``cache["pos"]``.
     Returns (logits (B, V) in the compute dtype, the cache with this token
     written into it in place and ``pos`` advanced)."""
-    _check_supported(cfg)
     cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
     pos = cache["pos"]
     h, _ = _embed(params, cfg, token[:, None], pos, cdt)

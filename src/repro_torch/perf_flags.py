@@ -60,6 +60,10 @@ class PerfFlags:
     # serving overload control: three-stage brownout (normal -> degraded ->
     # shedding) on a dispatch-time utilization EWMA.
     brownout: bool = False
+    # MoE: dispatch tokens to expert buckets per batch row (capacity from
+    # the row's tokens) instead of one global dispatch over every token
+    # of the batch (capacity from all of them).  Off = baseline.
+    moe_row_dispatch: bool = False
 
 
 FLAGS = PerfFlags()

@@ -33,7 +33,9 @@ def test_every_module_imports_without_jax_or_repro():
               "launch.serve_llm", "configs.hymba_1_5b", "core.cost_model",
               "core.affinity", "core.faults", "core.planner",
               "configs.stablelm_1_6b", "configs.starcoder2_7b",
-              "configs.falcon_mamba_7b"):
+              "configs.falcon_mamba_7b", "configs.internlm2_20b",
+              "configs.granite_moe_3b_a800m", "configs.qwen3_moe_30b_a3b",
+              "configs.internvl2_2b"):
         assert f"repro_torch.{m}" in mods
     for k in ("rmsnorm", "flash_decode", "ssm_scan"):
         for part in ("ops", "ref"):

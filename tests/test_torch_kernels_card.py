@@ -69,6 +69,15 @@ ATTN_CASES = [
     (16, 32, 32, 64, 64, True, 0, [64] * 16),
     (16, 36, 4, 64, 128, True, 4096, [64] * 16),
     (1, 36, 4, 4160, 128, True, 4096, [4160]),
+    # the prefills of granite-moe-3b-a800m (24 on 8 KV heads of 64),
+    # qwen3-moe-30b-a3b (32 on 4 of 64), internlm2-20b (48 on 8 of 128)
+    # and internvl2-2b (16 on 8 of 128), and internvl2's with its 256
+    # patch embeddings before the 64 tokens
+    (16, 24, 8, 64, 64, True, 0, [64] * 16),
+    (16, 32, 4, 64, 64, True, 0, [64] * 16),
+    (16, 48, 8, 64, 128, True, 0, [64] * 16),
+    (16, 16, 8, 64, 128, True, 0, [64] * 16),
+    (16, 16, 8, 320, 128, True, 0, [320] * 16),
 ]
 
 # (B, S, D, lens)
@@ -536,7 +545,9 @@ RMS_CASES = [(1024, 1600), (16, 1600), (7, 77), (5, 4096), (3, 8192),
              (9, 1604), (2, 4099), (2, 20000),
              # the served rows: stablelm-1.6b's and falcon-mamba-7b's
              # prefill (16 x 64) and decode (16)
-             (1024, 2048), (16, 2048), (1024, 4096), (16, 4096)]
+             (1024, 2048), (16, 2048), (1024, 4096), (16, 4096),
+             # granite-moe-3b-a800m's d 1536 and internlm2-20b's 6144
+             (1024, 1536), (16, 1536), (1024, 6144), (16, 6144)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -674,7 +685,13 @@ FD_CASES = [(16, 5, 5, 64, 80, 79, 1024), (2, 5, 5, 64, 1024, 1100, 1024),
             (1, 4, 9, 128, 4096, 5000, 4096),
             # the served decode steps of stablelm-1.6b (32 KV heads, G 1,
             # no window) and starcoder2-7b (G 9 x hd 128) on 80 slots
-            (16, 32, 1, 64, 80, 79, 0), (16, 4, 9, 128, 80, 79, 4096)]
+            (16, 32, 1, 64, 80, 79, 0), (16, 4, 9, 128, 80, 79, 4096),
+            # those of granite-moe-3b-a800m (G 3 x hd 64), qwen3-moe-30b-a3b
+            # (G 8 x hd 64) and internlm2-20b (G 6 x hd 128), and
+            # internvl2-2b's (G 2 x hd 128), whose cache keeps 256 slots
+            # for patches past the 80 of its prompt and new tokens
+            (16, 8, 3, 64, 80, 79, 0), (16, 4, 8, 64, 80, 79, 0),
+            (16, 8, 6, 128, 80, 79, 0), (16, 8, 2, 128, 336, 79, 0)]
 FD_DTYPES = [("float32", "float32"), ("bfloat16", "float32"),
              ("bfloat16", "bfloat16")]
 
@@ -821,29 +838,41 @@ def test_hymba_smoke_kernel_path_matches_plain_path(compute, monkeypatch):
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-7b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "internlm2-20b",
+                                  "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+                                  "internvl2-2b"])
 def test_decoder_smoke_kernel_path_matches_plain_path(arch, compute,
                                                       monkeypatch):
     """The other decoder families at smoke size (starcoder2's window 16
-    wraps its ring): each kernel of the family's path launched as often as
-    its layers ask, logits held against the plain versions."""
+    wraps its ring; internvl2 prefills 16 patch embeddings before its
+    prompt): each kernel of the family's path launched as often as its
+    layers ask, logits held against the plain versions.  internlm2 and
+    qwen3-moe run on bf16 weights, as they are served."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts
     from repro_torch.models import layers as L
     from repro_torch.models import lm
 
     cfg = get_config(arch).smoke()
+    wdt = (torch.bfloat16 if arch in ("internlm2-20b", "qwen3-moe-30b-a3b")
+           else torch.float32)
     params = lm.init_lm(cfg, torch.Generator("cuda").manual_seed(0),
-                        device="cuda")
+                        device="cuda", dtype=wdt)
     cdt = getattr(torch, compute)
     rng = np.random.default_rng(10)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24))
                             .astype(np.int32)).cuda()
     forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2))
                               .astype(np.int32)).cuda()
+    patches, P = None, 0
+    if cfg.frontend == "vision":
+        P = cfg.num_patches
+        patches = torch.from_numpy(rng.standard_normal(
+            (2, P, cfg.d_model)).astype(np.float32)).cuda()
 
     def run():
-        logits, cache = lm.prefill(params, cfg, toks, max_len=28,
+        logits, cache = lm.prefill(params, cfg, toks, patches,
+                                   max_len=28 + P,
                                    cache_dtype=torch.float32,
                                    compute_dtype=cdt)
         out = [logits]

@@ -7,8 +7,12 @@ then prefill of a 24-token prompt (the 16-slot ring wraps) and three decode
 steps on forced tokens, then the generation backend and the serving entry.
 The other decoder families the port serves (stablelm-1.6b: dense MHA;
 starcoder2-7b: GQA with layernorm, GELU and a window, 16 at smoke size, so
-its ring wraps too; falcon-mamba-7b: mamba only) go through the same
-prefill, decode steps and greedy generation at their smoke configs.
+its ring wraps too; falcon-mamba-7b: mamba only; internlm2-20b: dense GQA;
+granite-moe-3b-a800m and qwen3-moe-30b-a3b: MoE, under the global and the
+per-row dispatch; internvl2-2b: dense, with a vision frontend) go through
+the same prefill, decode steps and greedy generation at their smoke
+configs.  Then a bf16 reference tree carried across, internvl2's prefill
+with patch embeddings and the backend's cache length.
 
 fp32 compute is the tight oracle: the JAX model computes in fp32 when its
 ``layers.COMPUTE_DTYPE`` is patched (``monkeypatch``), and logits and
@@ -16,6 +20,7 @@ every cache leaf agree within 1e-4 of the largest logit.  In bf16 (both
 packages' default) the two round at different places; they are held within
 5e-2 of the largest magnitude.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -26,12 +31,14 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro import perf_flags as jflags  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.core.llm_backend import \
     LMGenerateBackend as JaxLMBackend  # noqa: E402
 from repro.models import api as japi  # noqa: E402
 from repro.models import layers as jL  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
+from repro_torch import perf_flags  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.llm_backend import LMGenerateBackend  # noqa: E402
 from repro_torch.core.routing import Query  # noqa: E402
@@ -41,7 +48,12 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 ARCH = "hymba-1.5b"
-DECODERS = ("stablelm-1.6b", "starcoder2-7b", "falcon-mamba-7b")
+DECODERS = ("stablelm-1.6b", "starcoder2-7b", "falcon-mamba-7b",
+            "internlm2-20b", "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+            "internvl2-2b")
+MOE = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
+# (arch, MoE dispatch): the MoE decoders also run with moe_row_dispatch
+DECODER_RUNS = [(a, "global") for a in DECODERS] + [(a, "row") for a in MOE]
 FP32_REL = 1e-4            # of the largest logit
 BF16_REL = 5e-2            # of the largest magnitude
 PROMPT, MAX_LEN, STEPS = 24, 28, 3
@@ -126,9 +138,6 @@ def test_init_lm_has_the_reference_layout(hymba):
 def test_unported_families_raise(hymba):
     _, tc, _, _ = hymba
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        lm.init_lm(tc.replace(num_experts=4, experts_per_token=2), g,
-                   device="cpu")
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         api.init_params(tc.replace(cross_attention=True), g, device="cpu")
     cache = api.init_cache(tc, 2, 40, device="cpu")
@@ -192,15 +201,38 @@ def smoke_run(request, hymba):
     return (request.param,) + run_both_packages(*hymba, request.param)
 
 
-def run_both_packages(jc, tc, params, tree, dtype):
+@contextlib.contextmanager
+def moe_dispatch(dispatch):
+    """Both packages' ``moe_row_dispatch`` flag on for "row"."""
+    row = dispatch == "row"
+    jflags.set_flags(moe_row_dispatch=row)
+    perf_flags.set_flags(moe_row_dispatch=row)
+    try:
+        yield
+    finally:
+        jflags.reset_flags()
+        perf_flags.reset_flags()
+
+
+def run_both_packages(jc, tc, params, tree, dtype, dispatch="global"):
     """([(jax logits, jax cache), ...], the same from the port) for the
     prefill of a 24-token prompt and three forced decode steps in
-    ``dtype``'s compute."""
+    ``dtype``'s compute, an MoE block under ``dispatch``.
+
+    An MoE config in bf16 runs the reference op by op (``jax.disable_jit``),
+    rounding to bf16 after each op as the port does.  Compiled, XLA fuses
+    the norms and skips roundings, so router logits move by a bf16 step,
+    and a top-K choice whose margin is under that step flips (seen at
+    smoke size: granite's second expert chosen by a logit margin of 0.0017
+    in layer 0, which moves layer 1's cached k or v by 1.16 where its
+    largest is 4.41); op by op, the two packages choose alike."""
     jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(3)
     toks = rng.integers(0, tc.vocab_size, (2, PROMPT)).astype(np.int32)
     forced = rng.integers(0, tc.vocab_size, (STEPS, 2)).astype(np.int32)
-    with pytest.MonkeyPatch.context() as mp:
+    op_by_op = jc.is_moe and dtype == "bfloat16"
+    with pytest.MonkeyPatch.context() as mp, moe_dispatch(dispatch), \
+            (jax.disable_jit() if op_by_op else contextlib.nullcontext()):
         mp.setattr(jL, "COMPUTE_DTYPE", jdt)     # read when jit traces
         logits, cache = jax.jit(lambda p, t: jlm.prefill(
             p, jc, t, max_len=MAX_LEN, cache_dtype=jnp.float32))(params, toks)
@@ -211,18 +243,18 @@ def run_both_packages(jc, tc, params, tree, dtype):
             jax_out.append((logits, cache))
         jax_out = [(np.asarray(lg, np.float32), jax.tree.map(np.asarray, c))
                    for lg, c in jax_out]
-    tp = port_params(tree)
-    logits, cache = lm.prefill(tp, tc, torch.from_numpy(toks),
-                               max_len=MAX_LEN, cache_dtype=torch.float32,
-                               compute_dtype=tdt)
-    port_out = [(logits, cache)]
-    for t in range(STEPS):
-        # decode_step updates the cache in place: snapshot each step's
-        logits, cache = lm.decode_step(
-            tp, tc, torch.from_numpy(forced[t]),
-            {k: v.clone() if torch.is_tensor(v) else v
-             for k, v in cache.items()}, compute_dtype=tdt)
-        port_out.append((logits, cache))
+        tp = port_params(tree)
+        logits, cache = lm.prefill(tp, tc, torch.from_numpy(toks),
+                                   max_len=MAX_LEN, cache_dtype=torch.float32,
+                                   compute_dtype=tdt)
+        port_out = [(logits, cache)]
+        for t in range(STEPS):
+            # decode_step updates the cache in place: snapshot each step's
+            logits, cache = lm.decode_step(
+                tp, tc, torch.from_numpy(forced[t]),
+                {k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in cache.items()}, compute_dtype=tdt)
+            port_out.append((logits, cache))
     return jax_out, port_out
 
 
@@ -344,7 +376,11 @@ def test_decoder_config_is_the_reference_config(arch):
     # d_ff, vocab, window, d_inner, dt_rank)
     want = {"stablelm-1.6b": (24, 2048, 32, 32, 64, 5632, 100352, 0),
             "starcoder2-7b": (32, 4608, 36, 4, 128, 18432, 49152, 4096),
-            "falcon-mamba-7b": (64, 4096, 0, 0, 0, 0, 65024, 0)}[arch]
+            "falcon-mamba-7b": (64, 4096, 0, 0, 0, 0, 65024, 0),
+            "internlm2-20b": (48, 6144, 48, 8, 128, 16384, 92544, 0),
+            "granite-moe-3b-a800m": (32, 1536, 24, 8, 64, 512, 49155, 0),
+            "qwen3-moe-30b-a3b": (48, 2048, 32, 4, 64, 768, 151936, 0),
+            "internvl2-2b": (24, 2048, 16, 8, 128, 8192, 92553, 0)}[arch]
     assert (tc.num_layers, tc.d_model, tc.num_heads, tc.num_kv_heads,
             tc.resolved_head_dim, tc.d_ff, tc.vocab_size,
             tc.sliding_window) == want
@@ -352,6 +388,13 @@ def test_decoder_config_is_the_reference_config(arch):
         assert (tc.d_inner, tc.ssm_state, tc.dt_rank) == (8192, 16, 256)
     if arch == "starcoder2-7b":
         assert (tc.act, tc.norm) == ("gelu", "layernorm")
+    # (experts, top k, capacity factor)
+    if arch in MOE:
+        assert (tc.num_experts, tc.experts_per_token, tc.capacity_factor) \
+            == {"granite-moe-3b-a800m": (40, 8, 1.25),
+                "qwen3-moe-30b-a3b": (128, 8, 1.25)}[arch]
+    if arch == "internvl2-2b":
+        assert (tc.frontend, tc.num_patches) == ("vision", 256)
 
 
 @pytest.fixture(scope="module")
@@ -366,12 +409,44 @@ def decoders():
     return out
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("arch", DECODERS[3:])
+def test_init_lm_has_the_reference_layout_for_the_new_decoders(
+        arch, dtype, decoders):
+    """The port's own random tree: the reference's keys, shapes and, as
+    asked, dtypes (the MoE block's router and stacked experts)."""
+    _, tc, _, tree = decoders[arch]
+    tdt = DTYPES[dtype][1]
+    got = api.init_params(tc, torch.Generator().manual_seed(0), device="cpu",
+                          dtype=tdt)
+    want = {jax.tree_util.keystr(k): v.shape for k, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+    mine = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t, got, is_leaf=torch.is_tensor))[0]
+    assert {jax.tree_util.keystr(k): tuple(v.shape) for k, v in mine} == want
+    assert {v.dtype for _, v in mine} == {tdt}
+    if arch in MOE:
+        ffn = got["blocks"]["ffn"]
+        E, D, F = tc.num_experts, tc.d_model, tc.d_ff
+        assert ffn["w_gate"].shape == (tc.num_layers, E, D, F)
+        # drawn a layer at a time: N(0, 1/fan_in) in every layer
+        for w in ffn["w_up"]:
+            assert abs(float(w.float().std()) * D ** 0.5 - 1.0) < 0.05
+
+
+def run_id(run):
+    arch, dispatch = run[:2]
+    tail = run[2:]
+    return "-".join((arch,) + tail + (("row",) if dispatch == "row" else ()))
+
+
 @pytest.fixture(scope="module",
-                params=[(a, d) for a in DECODERS for d in sorted(DTYPES)],
-                ids=lambda p: f"{p[0]}-{p[1]}")
+                params=[(a, m, d) for a, m in DECODER_RUNS
+                        for d in sorted(DTYPES)], ids=run_id)
 def decoder_run(request, decoders):
-    arch, dtype = request.param
-    return (arch, dtype) + run_both_packages(*decoders[arch], dtype)
+    arch, dispatch, dtype = request.param
+    return (arch, dtype) + run_both_packages(*decoders[arch], dtype,
+                                             dispatch)
 
 
 def test_decoder_logits_match_jax(decoder_run):
@@ -380,8 +455,7 @@ def test_decoder_logits_match_jax(decoder_run):
 
 def test_decoder_caches_match_jax(decoder_run):
     arch, name, jax_out, port_out = decoder_run
-    leaves = {"stablelm-1.6b": ("k", "v"), "starcoder2-7b": ("k", "v"),
-              "falcon-mamba-7b": ("ssm", "conv")}[arch]
+    leaves = (("ssm", "conv") if arch == "falcon-mamba-7b" else ("k", "v"))
     assert set(port_out[0][1]) == set(leaves) | {"pos"} | (
         {"kpos"} if "k" in leaves else set())
     assert_caches_match(name, jax_out, port_out, leaves)
@@ -391,11 +465,13 @@ def test_decoder_caches_match_jax(decoder_run):
                                           PROMPT + STEPS))
 
 
-@pytest.mark.parametrize("arch", DECODERS)
-def test_decoder_greedy_tokens_equal_the_jax_backend(arch, decoders,
+@pytest.mark.parametrize("run", DECODER_RUNS, ids=run_id)
+def test_decoder_greedy_tokens_equal_the_jax_backend(run, decoders,
                                                      monkeypatch):
     monkeypatch.setattr(jL, "COMPUTE_DTYPE", jnp.float32)
-    assert_greedy_tokens_equal(*decoders[arch])
+    arch, dispatch = run
+    with moe_dispatch(dispatch):
+        assert_greedy_tokens_equal(*decoders[arch])
 
 
 @pytest.mark.parametrize("arch", DECODERS)
@@ -408,6 +484,101 @@ def test_serve_llm_serves_each_decoder_on_the_cpu(arch):
     assert len(outs) == 10 and real, "the real tier served nothing"
     for o in real:
         assert o.shape == (3,) and ((o >= 0) & (o < 512)).all()
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_serve_llm_takes_bf16_weights_and_the_row_dispatch(arch, capsys):
+    from repro_torch.launch import serve_llm
+
+    outs = serve_llm.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--queries", "6", "--new-tokens", "3",
+                           "--weights", "bf16", "--opt", "moe_row_dispatch=1"])
+    try:
+        assert perf_flags.FLAGS.moe_row_dispatch
+    finally:
+        perf_flags.reset_flags()
+    assert len(outs) == 6
+    assert "bytes of bf16 params" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["internlm2-20b", "qwen3-moe-30b-a3b"])
+def test_a_bf16_reference_tree_runs_as_in_jax(arch):
+    """The two decoders served on bf16-resident weights: the reference's
+    own bf16 tree carried across bit for bit, then prefill and decode
+    steps in bf16 compute through both packages."""
+    jc, tc = jax_get_config(arch).smoke(), get_config(arch).smoke()
+    params = japi.init_params(jax.random.PRNGKey(1), jc, jnp.bfloat16)
+    tree = jax.tree.map(np.asarray, params)
+    tp = port_params(tree)
+    for want, got in zip(jax.tree.leaves(tree), jax.tree.leaves(
+            tp, is_leaf=torch.is_tensor)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                      want.view(np.int16))
+    jax_out, port_out = run_both_packages(jc, tc, params, tree, "bfloat16")
+    assert_logits_match("bfloat16", jax_out, port_out)
+
+
+def test_vlm_prefill_with_patch_embeddings_matches_jax(decoders,
+                                                       monkeypatch):
+    """internvl2-2b's prefill with its stub patch embeddings (16 at smoke
+    size) before a 24-token prompt, then three decode steps, in fp32."""
+    jc, tc, params, tree = decoders["internvl2-2b"]
+    monkeypatch.setattr(jL, "COMPUTE_DTYPE", jnp.float32)
+    rng = np.random.default_rng(8)
+    P = tc.num_patches
+    patches = rand(rng, 2, P, tc.d_model)
+    toks = rng.integers(0, tc.vocab_size, (2, PROMPT)).astype(np.int32)
+    forced = rng.integers(0, tc.vocab_size, (STEPS, 2)).astype(np.int32)
+    logits, cache = jax.jit(lambda p, t, e: jlm.prefill(
+        p, jc, t, e, max_len=P + MAX_LEN, cache_dtype=jnp.float32))(
+            params, toks, patches)
+    tp = port_params(tree)
+    got, got_cache = lm.prefill(tp, tc, torch.from_numpy(toks),
+                                torch.from_numpy(patches),
+                                max_len=P + MAX_LEN,
+                                cache_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    assert got_cache["pos"] == int(cache["pos"]) == P + PROMPT
+    np.testing.assert_array_equal(got_cache["kpos"].numpy(), cache["kpos"])
+    scale = np.abs(np.asarray(logits)).max()
+    assert_rel(got.numpy(), logits, FP32_REL)
+    for key in ("k", "v"):
+        assert_rel(got_cache[key].numpy(), cache[key], FP32_REL, scale=scale)
+    step = jax.jit(lambda p, t, c: jlm.decode_step(p, jc, t, c))
+    for t in range(STEPS):
+        logits, cache = step(params, forced[t], cache)
+        got, got_cache = lm.decode_step(tp, tc, torch.from_numpy(forced[t]),
+                                        got_cache,
+                                        compute_dtype=torch.float32)
+        assert_rel(got.numpy(), logits, FP32_REL)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "internlm2-20b"])
+def test_backend_cache_length_is_the_reference_backends(arch, decoders,
+                                                        monkeypatch):
+    """The generation backend's prefill cache: the prompt window, the new
+    tokens and, for internvl2's vision frontend, its patches, as the
+    reference backend sizes it."""
+    jc, tc, params, tree = decoders[arch]
+    ref = JaxLMBackend(jc, params, max_prompt=24, max_new_tokens=5)
+    toks = np.ones((2, 24), np.int32)
+    want = ref._prefill(params, jnp.asarray(toks))[1]["k"].shape
+    seen = []
+    prefill = lm.prefill
+
+    def spy(*a, **kw):
+        out = prefill(*a, **kw)
+        seen.append(tuple(out[1]["k"].shape))
+        return out
+
+    monkeypatch.setattr(lm, "prefill", spy)
+    be = LMGenerateBackend(tc, port_params(tree), max_prompt=24,
+                           max_new_tokens=5, device="cpu")
+    be.generate(toks)
+    assert seen == [tuple(want)]
+    assert want[2] == 24 + 5 + (tc.num_patches if arch == "internvl2-2b"
+                                else 0)
 
 
 def test_deep_random_mamba_drifts_in_bf16_in_both_packages():
