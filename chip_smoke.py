@@ -32,7 +32,10 @@ non-zero:
            shapes of stablelm, starcoder2, granite-moe, qwen3-moe,
            internlm2 and internvl2 (80 slots; 336 for internvl2, whose
            cache keeps room for 256 patches) and at starcoder2's G 9 x hd
-           128 on a 4096-slot ring.
+           128 on a 4096-slot ring; and whisper-tiny's: attention over its
+           1500 encoder frames, its prefill's cross attention (64 queries
+           over the 1500 frames), its decoder's causal S 64 and its decode
+           step (G 1 x hd 64, 80 slots).
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
            vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
@@ -82,6 +85,22 @@ non-zero:
            moe_row_dispatch.  internvl2 prefills 256 stub patch
            embeddings before the 64-token prompts (S 320), kernels
            against plain versions in bf16 and fp32.
+  encdec   whisper-tiny (4 + 4 layers, d_model 384, 1500 stub frames) at
+           its published width through steps/serve.py's builders: random
+           fp32 weights and frames from one seeded generator, a prefill of
+           16 prompts of 64 tokens and 15 greedy decode steps (80 fp32
+           cache slots), bf16 compute.  Launch counts are zeroed just
+           before the prefill and read just after the last step; the
+           encoder's and the decoder's flash_attention (self and cross)
+           and flash_decode must have run as often as the layers ask.
+           Then, off the counted path: teacher-forced logits through the
+           kernels against the plain versions (cosine >= 0.99 in fp32
+           compute; in bf16 held where met, else reported), decode steps
+           against a fresh prefill of the longer prompt on the same frames
+           in fp32 compute (cosine >= 0.99), the encoder's states through
+           the kernels against the plain versions (max-abs, reported), and
+           host clock, device busy time and idle share of encode, prefill
+           and one decode step.
   profile  (only when named) one bge forward at B=16 x S=96 under each
            policy, and one prefill (B=16 x S=64) and decode step of each
            of the eight decoders:
@@ -112,7 +131,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("build", "kernels", "golden", "serve", "offload", "chaos",
-          "generate")
+          "generate", "encdec")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # fp32 outside the tensor cores
@@ -162,6 +181,8 @@ MOE = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
 # 79.4 GB and 120 GB of the card's 80)
 BF16_WEIGHTS = ("internlm2-20b", "qwen3-moe-30b-a3b")
 VLM_PATCH_B = 16                     # the patch-prefix prefill's batch
+# the encoder-decoder, at LM_B x LM_PROMPT + LM_NEW over its 1500 frames
+ENC_ARCH = "whisper-tiny"
 # (batch, prompt tokens, new tokens)
 LONG_PROMPTS = {LM_ARCH: (2, LONG_PROMPT, LM_NEW),
                 "starcoder2-7b": (1, 4160, 5)}
@@ -287,14 +308,15 @@ def phase_build(args) -> dict:
             "ptxas": lines[:24]}
 
 
-def _attn_inputs(dev, B, H, KV, S, hd, dt, kv_len, seed=0):
+def _attn_inputs(dev, B, H, KV, S, Sk, hd, dt, kv_len, seed=0):
+    """q (B, H, S, hd) and k, v (B, KV, Sk, hd)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((B, S, H, hd), np.float32))
-    k = torch.from_numpy(rng.standard_normal((B, S, KV, hd), np.float32))
-    v = torch.from_numpy(rng.standard_normal((B, S, KV, hd), np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, Sk, KV, hd), np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, Sk, KV, hd), np.float32))
     # (B, S, heads, hd) projections seen as (B, heads, S, hd), as
     # models.layers.attn_forward passes them
     q, k, v = (t.to(dev, dt).transpose(1, 2) for t in (q, k, v))
@@ -303,14 +325,16 @@ def _attn_inputs(dev, B, H, KV, S, hd, dt, kv_len, seed=0):
 
 
 def attention_case(dev, B, H, KV, S, hd, dt, kv_len, *, causal=False,
-                   window=0) -> dict:
+                   window=0, Sk=None) -> dict:
+    """S queries over Sk keys (S unless given), ``kv_len`` a row."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_mask
 
-    q, k, v, kvl = _attn_inputs(dev, B, H, KV, S, hd, dt, kv_len)
+    Sk = S if Sk is None else Sk
+    q, k, v, kvl = _attn_inputs(dev, B, H, KV, S, Sk, hd, dt, kv_len)
     kw = dict(causal=causal, window=window, kv_len=kvl)
     got = flash_attention(q, k, v, **kw)
     want = attention_ref(q, k, v, **kw)
@@ -321,7 +345,8 @@ def attention_case(dev, B, H, KV, S, hd, dt, kv_len, *, causal=False,
     zero_rows = [b for b, n in enumerate(kv_len) if n == 0]
     finite = bool(torch.isfinite(got).all().item())
     zeros_ok = all(bool((got[b] == 0).all().item()) for b in zero_rows)
-    out = {"B": B, "H": H, "KV": KV, "S": S, "hd": hd, "dtype": dtype_name(dt),
+    out = {"B": B, "H": H, "KV": KV, "S": S, "Sk": Sk, "hd": hd,
+           "dtype": dtype_name(dt),
            "causal": causal, "window": window, "kv_len": list(kv_len),
            "max_abs_err": err, "tol": tol, "finite": finite,
            "kv_len0_rows_zero": zeros_ok,
@@ -330,7 +355,7 @@ def attention_case(dev, B, H, KV, S, hd, dt, kv_len, *, causal=False,
     # rows that some query may see, every output row (a row with no valid
     # key is still written, as zeros) and kv_len
     esize = q.element_size()
-    mask = attention_mask(B, S, S, causal=causal, window=window, kv_len=kvl,
+    mask = attention_mask(B, S, Sk, causal=causal, window=window, kv_len=kvl,
                           device=dev)                       # (B, Sq, Sk)
     q_rows = int(mask.any(-1).sum().item())
     kv_rows = int(mask.any(-2).sum().item())
@@ -737,6 +762,19 @@ def phase_kernels(args, dev) -> dict:
             attn.append(attention_case(dev, b, h, kv, s, d, dt, [s] * b,
                                        causal=True, window=win))
         attn_cases[f"{tag}_fp32"], attn_cases[f"{tag}_bf16"] = attn[-2:]
+    # whisper-tiny (6 heads of 64, G 1): its encoder over the 1500 frames
+    # and its prefill's cross attention (64 decoder queries over them),
+    # both bidirectional, and its decoder's causal self-attention (on the
+    # CPU: the smoke config's 32 frames, 4 heads of 32)
+    wb, wh, whd, wf = (LM_B, 6, 64, 1500) if t else (2, 4, 32, 32)
+    wp = LM_PROMPT if t else 24
+    for tag, sq, sk, causal in (("whisper_enc_S1500", wf, wf, False),
+                                ("whisper_cross_Sq64_Sk1500", wp, wf, False),
+                                ("whisper_dec_S64", wp, wp, True)):
+        for dt in (f32, bf16):
+            attn.append(attention_case(dev, wb, wh, wh, sq, whd, dt,
+                                       [sk] * wb, causal=causal, Sk=sk))
+        attn_cases[f"{tag}_fp32"], attn_cases[f"{tag}_bf16"] = attn[-2:]
     pools = [pool_case(dev, B, S, D, dt, pool, ragged)
              for pool in ("cls", "mean") for dt in (f32, bf16)]
     pool_cases = {f"mean_{c['dtype']}": c for c in pools
@@ -811,7 +849,10 @@ def phase_kernels(args, dev) -> dict:
                                   (8, 6, 128, Sc), (8, 2, 128, Sc + 256))
                                  if t else
                                  ((2, 3, 64, Sc), (1, 8, 64, Sc),
-                                  (1, 6, 128, Sc), (2, 2, 128, Sc + 16))))]
+                                  (1, 6, 128, Sc), (2, 2, 128, Sc + 16)))),
+          # whisper-tiny's decoder self-attention (6 KV heads, G 1, hd 64)
+          flash_decode_case(dev, Bl, 6 if t else 2, 1, 64 if t else 32, Sc,
+                            Sc - 1, 0, bf16, f32)]
     cases = ([("flash_attention", c) for c in attn]
              + [("pool_norm", c) for c in pools]
              + [("quant_matmul", c) for c in qm]
@@ -871,7 +912,8 @@ def phase_kernels(args, dev) -> dict:
                           "granite_served_G3_hd64": fd[10],
                           "qwen3_served_G8_hd64": fd[11],
                           "internlm2_served_G6_hd128": fd[12],
-                          "internvl2_served_G2_hd128_336_slots": fd[13]}}}
+                          "internvl2_served_G2_hd128_336_slots": fd[13],
+                          "whisper_served_G1_hd64": fd[14]}}}
 
 
 def golden_tree():
@@ -1626,6 +1668,188 @@ def phase_generate(args, dev) -> dict:
             "launches_by_model": by_model}
 
 
+def param_bytes(tree) -> int:
+    return sum(param_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def encdec_forced(params, cfg, toks, frames, forced, cdt):
+    """Teacher-forced logits of whisper's path, (steps + 1, B, V): the
+    prefill's, then each decode step's on ``forced`` (steps, B)."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    with torch.inference_mode():
+        logits, cache = encdec.prefill(
+            params, cfg, toks, frames, cache_dtype=torch.float32,
+            max_len=toks.shape[1] + forced.shape[0] + 1, compute_dtype=cdt)
+        out = [logits]
+        for t in range(forced.shape[0]):
+            logits, cache = encdec.decode_step(params, cfg, forced[t], cache,
+                                               compute_dtype=cdt)
+            out.append(logits)
+    return torch.stack(out)
+
+
+def phase_encdec(args, dev) -> dict:
+    """whisper-tiny's serving path at its published width (its smoke config
+    on the CPU) through steps/serve.py's builders: random fp32 weights and
+    stub frames (16, 1500, 384) from one seeded generator, a prefill of 16
+    prompts of 64 tokens, then 15 greedy decode steps (80 fp32 cache
+    slots), bf16 compute.  Launch counts are zeroed just before the
+    prefill and read just after the last step.  Then, off the counted
+    path: teacher-forced logits through the kernels against the plain
+    versions (fp32 compute held, bf16 held where met, else reported),
+    each decode step against a fresh prefill of the longer prompt on the
+    same frames (fp32 compute), the encoder's output through the kernels
+    against the plain versions (max-abs, reported), and the host clock
+    and a profiler trace of encode, prefill and a decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.workload import make_queries
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import api, encdec
+    from repro_torch.steps.serve import build_decode_step, build_prefill_step
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = get_config(ENC_ARCH)
+    if not cuda:
+        cfg = cfg.smoke()
+    B, prompt, new = (LM_B, LM_PROMPT, LM_NEW) if cuda else (2, 24, 4)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = api.init_params(cfg, g, device=dev)
+    frames = torch.randn((B, cfg.num_frames, cfg.d_model), generator=g,
+                         device=dev)
+    toks = torch.from_numpy(np.stack(make_queries(
+        B, cfg.vocab_size, prompt, seed=11)).astype(np.int32)).to(dev)
+    shape = ShapeConfig("whisper-serve", prompt + new, B, "decode")
+    prefill = build_prefill_step(cfg, shape, cache_dtype=torch.float32,
+                                 max_len=prompt + new)
+    step = build_decode_step(cfg, shape)
+    E, Ly, V = cfg.encoder_layers, cfg.num_layers, cfg.vocab_size
+    reset_launch_counts()                 # the served path starts here
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": toks, "frames": frames})
+        sync()
+        t1 = time.perf_counter()
+        gen = [logits.argmax(-1).to(torch.int32)]
+        for _ in range(new - 1):
+            tok, cache = step(params, cache, {"token": gen[-1]})
+            gen.append(tok)
+        sync()
+        t2 = time.perf_counter()
+    counts = launch_counts()              # ... and ends here
+    gen = torch.stack(gen, 1)
+    out = {"model": cfg.name, "encoder_layers": E, "decoder_layers": Ly,
+           "d_model": cfg.d_model, "frames": cfg.num_frames, "batch": B,
+           "prompt": prompt, "new_tokens": new,
+           "params_bytes": param_bytes(params),
+           "launches": counts, "served_prefill_ms": (t1 - t0) * 1e3,
+           "served_decode_ms_per_step": (t2 - t1) * 1e3 / (new - 1)}
+    require(tuple(gen.shape) == (B, new)
+            and bool(((gen >= 0) & (gen < V)).all().item())
+            and bool(torch.isfinite(logits).all().item())
+            and cache["pos"] == prompt + new - 1,
+            f"whisper: tokens {tuple(gen.shape)}, not ({B}, {new}) ids in "
+            f"[0, {V}), non-finite logits or cache at {cache['pos']}")
+    if cuda:
+        want = {"flash_attention": E + 2 * Ly, "flash_decode": (new - 1) * Ly}
+        require(all(counts[k] == n for k, n in want.items()),
+                f"whisper's path launched {counts}, not {want}")
+
+    # off the counted path, teacher-forced on the served tokens (TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    forced = gen[:, :-1].T.contiguous()
+    steps = {}
+    for tag, cdt in (("fp32_", torch.float32), ("", torch.bfloat16)):
+        steps[tag] = encdec_forced(params, cfg, toks, frames, forced, cdt)
+        with plain_kernels():
+            plain = encdec_forced(params, cfg, toks, frames, forced, cdt)
+        require(bool(torch.isfinite(steps[tag]).all().item()),
+                f"whisper {tag}logits not finite")
+        out[f"{tag}kernel_vs_plain_min_cosine"] = [
+            min_cosine(a, b) for a, b in zip(steps[tag], plain)]
+    # decode against a fresh prefill of the longer prompt, same frames
+    for tag, key, cdt in (("", "fp32_", torch.float32),
+                          ("bf16_", "", torch.bfloat16)):
+        cos = []
+        with torch.inference_mode():
+            for t in range(new - 1):
+                longer = torch.cat([toks, forced[:t + 1].T], dim=1)
+                want, _ = encdec.prefill(params, cfg, longer, frames,
+                                         cache_dtype=torch.float32,
+                                         compute_dtype=cdt)
+                cos.append(min_cosine(steps[key][t + 1], want))
+        out[f"{tag}decode_vs_prefill_min_cosine"] = cos
+    # the encoder's states, kernels against plain versions
+    for tag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        with torch.inference_mode():
+            enc = encdec.encode(params, cfg, frames, cdt)
+            with plain_kernels():
+                plain = encdec.encode(params, cfg, frames, cdt)
+        require(bool(torch.isfinite(enc).all().item()),
+                f"whisper {tag} encoder states not finite")
+        out[f"encoder_kernel_vs_plain_max_abs_err_{tag}"] = (
+            enc.float() - plain.float()).abs().max().item()
+        out[f"encoder_max_abs_{tag}"] = enc.float().abs().max().item()
+    held = ["fp32_kernel_vs_plain_min_cosine", "decode_vs_prefill_min_cosine",
+            "kernel_vs_plain_min_cosine"]
+    if min(out["kernel_vs_plain_min_cosine"]) < COSINE_BAR:
+        held.remove("kernel_vs_plain_min_cosine")
+        out["bf16_kernel_vs_plain_reported_because"] = (
+            "bf16 rounding in another order through 4 + 4 random layers")
+    out["held"] = held
+
+    # host clock and device trace of encode, prefill and one decode step
+    # (bf16 compute, the served one)
+    trace_dir = os.path.join(ROOT, "build", "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU] + (
+        [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
+
+    def run_encode():
+        with torch.inference_mode():
+            return encdec.encode(params, cfg, frames)
+
+    def run_prefill():
+        with torch.inference_mode():
+            return prefill(params, {"tokens": toks, "frames": frames})
+
+    _, cache = run_prefill()
+    tok = gen[:, 0]
+
+    def run_decode():
+        # the same position every call: the step's work stays the same
+        with torch.inference_mode():
+            return step(params, cache, {"token": tok})
+
+    for name, fn in (("encode", run_encode), ("prefill", run_prefill),
+                     ("decode_step", run_decode)):
+        out[name] = profile_steps(fn, sync, acts, os.path.join(
+            trace_dir, f"profile_whisper_{name}.json"))
+    emit({"phase": "encdec", **out})
+    for key in held:
+        require(min(out[key]) >= COSINE_BAR,
+                f"whisper {key}: {min(out[key])} < {COSINE_BAR}")
+    summary = {key: min(out[key]) for key in out
+               if key.endswith("_min_cosine")}
+    summary.update({k: out[k] for k in out
+                    if k.startswith(("encoder_kernel", "encoder_max")) or k in (
+                        "held", "launches", "params_bytes",
+                        "served_prefill_ms", "served_decode_ms_per_step",
+                        "bf16_kernel_vs_plain_reported_because")})
+    summary.update({f"{name}_{k}": out[name][k]
+                    for name in ("encode", "prefill", "decode_step")
+                    for k in ("wall_ms", "device_busy_ms", "idle_share",
+                              "kernels_per_step")})
+    return summary
+
+
 def profile_steps(fn, sync, acts, trace_path, reps: int = 5) -> dict:
     """Where the time of one call of ``fn`` goes: host clock (synchronised),
     host enqueue time, device busy time summed from the kernels of a
@@ -1887,7 +2111,8 @@ def main() -> int:
     print(card_line(), flush=True)
     if "kernels" in results:
         by_path = {path: results[path]["launches"]
-                   for path in ("serve", "offload", "chaos", "generate")
+                   for path in ("serve", "offload", "chaos", "generate",
+                                "encdec")
                    if path in results}
         emit(kernel_summary(results["kernels"], by_path))
     if failed or not set(PHASES) <= set(phases):

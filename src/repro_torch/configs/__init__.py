@@ -1,3 +1,5 @@
-from repro_torch.configs.base import ARCH_MODULES, ModelConfig, get_config
+from repro_torch.configs.base import (ARCH_MODULES, INPUT_SHAPES, ModelConfig,
+                                     ShapeConfig, get_config)
 
-__all__ = ["ARCH_MODULES", "ModelConfig", "get_config"]
+__all__ = ["ARCH_MODULES", "INPUT_SHAPES", "ModelConfig", "ShapeConfig",
+           "get_config"]

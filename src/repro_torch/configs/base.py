@@ -1,18 +1,21 @@
 """Model configuration dataclass and the registry of the port's models.
 
 A copy of the reference package's ``configs/base.py``, cut to what the
-embedding-serving and LM-generation paths read: ``ModelConfig`` with its
-derived sizes, its ``smoke()`` reduced variant and ``get_config``.  The
-registry lists the models the port serves so far: the two embedders and
-the decoder LMs hymba-1.5b, stablelm-1.6b, starcoder2-7b, falcon-mamba-7b,
-internlm2-20b, the MoE decoders granite-moe-3b-a800m and qwen3-moe-30b-a3b,
-and internvl2-2b (its vision frontend a stub of patch embeddings), each
-with its published dimensions.
+embedding-serving and generation paths read: ``ModelConfig`` with its
+derived sizes, its ``smoke()`` reduced variant, ``get_config`` and the
+serving steps' ``ShapeConfig``/``INPUT_SHAPES``.  The registry lists the
+models the port serves so far: the two embedders, the decoder LMs
+hymba-1.5b, stablelm-1.6b, starcoder2-7b, falcon-mamba-7b, internlm2-20b,
+the MoE decoders granite-moe-3b-a800m and qwen3-moe-30b-a3b, internvl2-2b
+(its vision frontend a stub of patch embeddings) and the encoder-decoder
+whisper-tiny (its audio frontend a stub of frame embeddings), each with
+its published dimensions.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
+from typing import Dict
 
 
 @dataclass(frozen=True)
@@ -120,6 +123,21 @@ class ModelConfig:
         return replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 # architecture id -> module name in this package
 ARCH_MODULES = {
     "bge-large-zh-v1.5": "bge_large_zh",
@@ -132,6 +150,7 @@ ARCH_MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "internvl2-2b": "internvl2_2b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 

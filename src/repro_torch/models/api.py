@@ -4,10 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import embedder, lm
-
-_ENCDEC = ("the encoder-decoder (cross attention) belongs to a later slice "
-           "of the port (ROADMAP.md Queue 1)")
+from repro_torch.models import embedder, encdec, lm
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
@@ -15,12 +12,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     if cfg.arch_type == "encoder":
         return embedder.init_embedder(cfg, generator, device, dtype)
     if cfg.cross_attention:
-        raise NotImplementedError(_ENCDEC)
+        return encdec.init_encdec(cfg, generator, device, dtype)
     return lm.init_lm(cfg, generator, device, dtype)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    if cfg.cross_attention:
-        raise NotImplementedError(_ENCDEC)
-    return lm.init_cache(cfg, batch, seq_len, dtype, device)
+    model = encdec if cfg.cross_attention else lm
+    return model.init_cache(cfg, batch, seq_len, dtype, device)

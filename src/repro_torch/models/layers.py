@@ -1,13 +1,15 @@
-"""Building blocks of the embedder trunk and the decoder LM, in PyTorch.
+"""Building blocks of the embedder trunk, the decoder LM and the
+encoder-decoder, in PyTorch.
 
 The parts of the reference's ``models/layers.py`` that the bge/jina
-embedder and the decoder LMs run, as plain functions on tensors over the same
-nested param dicts (``init_*`` build them, stacked on a leading ``lead``
-shape, from a ``torch.Generator``).  Each call that the reference runs as a
-TPU kernel goes through the port's kernel router, which picks by the
-tensor's device: the CUDA kernel on the card, the plain version on the CPU:
+embedder, the decoder LMs and whisper's encoder-decoder run, as plain
+functions on tensors over the same nested param dicts (``init_*`` build
+them, stacked on a leading ``lead`` shape, from a ``torch.Generator``).
+Each call that the reference runs as a TPU kernel goes through the port's
+kernel router, which picks by the tensor's device: the CUDA kernel on the
+card, the plain version on the CPU:
 
-- full-sequence attention -> ``kernels.flash_attention``;
+- full-sequence attention (self or cross) -> ``kernels.flash_attention``;
 - one-token attention against the KV cache -> ``kernels.flash_decode``;
 - RMSNorm -> ``kernels.rmsnorm``;
 - the Mamba-1 prefill scan -> ``kernels.ssm_scan``.
@@ -17,8 +19,9 @@ A float projection is ``torch.matmul``; an int8 one (a quantized tree,
 which picks the same way.  Under W8A8 an input that feeds several weights
 (q, k and v; gate and up) is quantized once for all of them
 (``dense_apply_many``).  The MoE experts' products are batched matrix
-products (``torch.einsum``), as the reference computes them outside any
-kernel.
+products (``torch.einsum``), and a decode step's cross attention
+(``cross_decode``) is two ``einsum``s and a softmax, as the reference
+computes them outside any kernel.
 
 Numerics kept from the reference: GELU is the tanh form (``jax.nn.gelu``'s
 default), the layernorm variance is biased, norms compute in fp32 and cast
@@ -78,13 +81,15 @@ def init_norm(cfg: ModelConfig, lead: tuple, dtype, device) -> Params:
 
 
 def init_attention(g: torch.Generator, cfg: ModelConfig, lead: tuple, dtype,
-                   device) -> Params:
+                   device, cross: bool = False) -> Params:
+    """q/k/v/o projections, and q/k/v biases where the config has them; a
+    cross-attention block (``cross``) has none, as in the reference."""
     hd = cfg.resolved_head_dim
     H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
     p = {name: dense_init(g, shape, lead, dtype, device)
          for name, shape in (("wq", (D, H * hd)), ("wk", (D, KV * hd)),
                              ("wv", (D, KV * hd)), ("wo", (H * hd, D)))}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             p[name] = torch.zeros(lead + (n,), dtype=dtype, device=device)
     return p
@@ -195,35 +200,47 @@ def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 
 
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                 act_quant: bool = False):
+                 kv_x: Optional[torch.Tensor] = None, act_quant: bool = False):
+    """q from x; k and v from ``kv_x`` (cross attention), or from x when it
+    is None, in which case W8A8 quantizes x once for all three."""
     hd = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    q, k, v = dense_apply_many(p, ("wq", "wk", "wv"), x, act_quant)
+    if kv_x is None:
+        kv_x = x
+        q, k, v = dense_apply_many(p, ("wq", "wk", "wv"), x, act_quant)
+    else:
+        q = dense_apply(p, "wq", x, act_quant)
+        k, v = dense_apply_many(p, ("wk", "wv"), kv_x, act_quant)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     q = q.reshape(*x.shape[:-1], H, hd)
-    k = k.reshape(*x.shape[:-1], KV, hd)
-    v = v.reshape(*x.shape[:-1], KV, hd)
+    k = k.reshape(*kv_x.shape[:-1], KV, hd)
+    v = v.reshape(*kv_x.shape[:-1], KV, hd)
     return q, k, v
 
 
 def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, *, causal: bool = True,
+                 kv_x: Optional[torch.Tensor] = None,
+                 kv_positions: Optional[torch.Tensor] = None,
                  kv_mask: Optional[torch.Tensor] = None,
                  act_quant: bool = False, return_kv: bool = False):
-    """Full-sequence self-attention over x (B, S, D) at contiguous [0, S)
-    positions, with rotary positions when the config has them and, when
-    causal, the config's sliding window.  ``kv_mask`` (B, S), 1 = real key,
-    must be a left-aligned prefix per row: it is passed on as
-    ``kv_len = kv_mask.sum(-1)``.  ``act_quant``: W8A8 projections on a
-    quantized tree.  ``return_kv`` also returns the (rotated) k and v,
-    (B, S, KV, hd), for the decode cache."""
-    q, k, v = _project_qkv(p, cfg, x, act_quant)
+    """Full-sequence attention of x (B, S, D) at contiguous [0, S)
+    positions over itself or, for cross attention, over ``kv_x`` (B, Skv,
+    D) at ``kv_positions`` (default: ``positions``), with rotary positions
+    when the config has them and, when causal, the config's sliding
+    window.  ``kv_mask`` (B, Skv), 1 = real key, must be a left-aligned
+    prefix per row: it is passed on as ``kv_len = kv_mask.sum(-1)``.
+    ``act_quant``: W8A8 projections on a quantized tree.  ``return_kv``
+    also returns the (rotated) k and v, (B, Skv, KV, hd), for the decode
+    cache."""
+    q, k, v = _project_qkv(p, cfg, x, kv_x, act_quant)
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        k = rope(k, positions if kv_positions is None else kv_positions,
+                 cfg.rope_theta)
     kv_len = None
     if kv_mask is not None:
         kv_len = (kv_mask != 0).sum(-1).to(torch.int32)
@@ -294,6 +311,28 @@ def attn_decode(p: Params, cfg: ModelConfig, x1: torch.Tensor, pos: int,
                        pos, window=cfg.sliding_window)
     y = dense_apply(p, "wo", out.reshape(B, 1, H * hd))
     return y, cache_k, cache_v, kpos
+
+
+def cross_decode(p: Params, cfg: ModelConfig, x1: torch.Tensor,
+                 cross_k: torch.Tensor, cross_v: torch.Tensor,
+                 kv_len: int) -> torch.Tensor:
+    """One token's cross attention, x1 (B, 1, D), against the encoder's
+    cached k and v (B, F, KV, hd), in plain ops as the reference computes
+    it outside any kernel, rounding where it rounds: fp32 scores of the
+    compute-dtype q and ``cross_k`` cast to q's dtype, an fp32 softmax, the
+    weights cast to ``cross_v``'s dtype before an fp32-accumulated PV, the
+    output cast to x1's dtype before ``wo``.  Every frame is valid:
+    ``kv_len`` is unused, as in the reference."""
+    hd = cfg.resolved_head_dim
+    B = x1.shape[0]
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    q = (x1 @ p["wq"].to(x1.dtype)).reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", q.float(),
+                     cross_k.to(q.dtype).float()) / math.sqrt(hd)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", w.to(cross_v.dtype).float(),
+                       cross_v.float())
+    return out.reshape(B, 1, H * hd).to(x1.dtype) @ p["wo"].to(x1.dtype)
 
 
 def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor,

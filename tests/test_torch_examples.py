@@ -1,6 +1,7 @@
 """The port's examples (``examples/torch_*.py``) run on the CPU with
 ``--device cpu``, and print what the JAX package's examples print where
 the numbers do not depend on the host's clock."""
+import ast
 import importlib.util
 import os
 import re
@@ -123,3 +124,44 @@ def test_offload_run_engine_returns_each_querys_vector():
         want = real.embed_batch([Query(qid=0, payload=queries[i],
                                        length=ex.LENGTH)])[0]
         np.testing.assert_allclose(outs[i], want, atol=1e-6, rtol=0)
+
+
+def pinned(fn):
+    """``fn()`` with the GIL switch interval pinned at 5 s, so a burst of
+    submits lands before an engine worker pops its first batch."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(5.0)
+    try:
+        return fn()
+    finally:
+        sys.setswitchinterval(old)
+
+
+def served_and_adapted(out):
+    """The serve-llm printout's numbers that no clock moves: generations,
+    rejections, the per-tier split, the depth after adaptation and the
+    calibrator's observations."""
+    served = re.search(r"(\d+) generations in [\d.]+s  rejected\(BUSY\)=(\d+)"
+                       r"  per-device=(\{.*\})", out)
+    adapted = re.search(r"NPU depth after adaptation: .*", out)
+    return (served.group(1), served.group(2),
+            ast.literal_eval(served.group(3)), adapted.group(0))
+
+
+@pytest.mark.parametrize("argv", [[], ["--queries", "5", "--new-tokens", "3"]],
+                         ids=["defaults", "five-queries"])
+def test_serve_llm_serves_the_reference_examples_burst(argv, monkeypatch,
+                                                        capsys):
+    stats, outs = pinned(lambda: load("torch_serve_llm").main(
+        argv + ["--device", "cpu"]))
+    out = capsys.readouterr().out
+    assert "stablelm-1.6b-smoke: generation backend on cpu" in out
+    want = served_and_adapted(pinned(lambda: run_reference(
+        "serve_llm", argv, monkeypatch, capsys)))
+    assert served_and_adapted(out) == want
+    new = 3 if argv else 8
+    assert len(outs) == stats.accepted and stats.n_completed == len(outs)
+    real = [o for o in outs if o.dtype.kind in "iu"]
+    assert len(real) == stats.per_device.get("CPU", 0)
+    for o in real:
+        assert o.shape == (new,) and ((o >= 0) & (o < 512)).all()

@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_or_repro():
               "configs.stablelm_1_6b", "configs.starcoder2_7b",
               "configs.falcon_mamba_7b", "configs.internlm2_20b",
               "configs.granite_moe_3b_a800m", "configs.qwen3_moe_30b_a3b",
-              "configs.internvl2_2b"):
+              "configs.internvl2_2b", "configs.whisper_tiny",
+              "models.encdec", "steps.serve"):
         assert f"repro_torch.{m}" in mods
     for k in ("rmsnorm", "flash_decode", "ssm_scan"):
         for part in ("ops", "ref"):
@@ -60,7 +61,7 @@ def test_port_examples_load_without_jax_or_repro():
     examples = sorted(os.path.join(ROOT, "examples", f) for f in
                       os.listdir(os.path.join(ROOT, "examples"))
                       if f.startswith("torch_") and f.endswith(".py"))
-    assert len(examples) == 3, examples
+    assert len(examples) == 4, examples
     code = ("import importlib.util, sys\n"
             f"for i, path in enumerate({examples!r}):\n"
             "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"

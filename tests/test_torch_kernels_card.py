@@ -120,6 +120,44 @@ def test_attention_kernel_matches_plain(case, dtype):
                                atol=TOL[dtype])
 
 
+# (B, H, KV, Sq, Sk, hd, kv_len): bidirectional attention of Sq queries
+# over Sk keys, Sk 1500 = 46 key tiles of 32 and 28 keys: whisper-tiny's
+# cross attention in prefill (64 decoder queries over the 1500 encoder
+# frames), a short odd case with a row of no valid key and one that ends
+# mid-tile, and its encoder's self-attention over the 1500 frames
+XATTN_CASES = [(16, 6, 6, 64, 1500, 64, [1500] * 16),
+               (2, 6, 6, 7, 1500, 64, [0, 1499]),
+               (16, 6, 6, 1500, 1500, 64, [1500] * 16)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", XATTN_CASES, ids=_ids(
+    XATTN_CASES, lambda B, H, KV, Sq, Sk, hd, _: f"B{B}H{H}Sq{Sq}Sk{Sk}"))
+def test_attention_kernel_matches_plain_for_queries_over_other_keys(case,
+                                                                    dtype):
+    B, H, KV, Sq, Sk, hd, kv_len = case
+    rng = np.random.default_rng(11)
+    q = _on_card(rng.standard_normal((B, H, Sq, hd), np.float32), dtype)
+    k, v = (_on_card(rng.standard_normal((B, KV, Sk, hd), np.float32), dtype)
+            for _ in range(2))
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False, kv_len=kvl)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == (B, H, Sq, hd)
+    want = attention_ref(q, k, v, causal=False, kv_len=kvl)
+    assert torch.isfinite(got).all()
+    assert (got[kvl == 0] == 0).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    # without kv_len every key is valid, as whisper's path calls it
+    got = flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(
+        got.float(), attention_ref(q, k, v, causal=False).float(), rtol=0,
+        atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pool", ["mean", "cls"])
 @pytest.mark.parametrize("case", POOL_CASES, ids=_ids(
@@ -691,7 +729,9 @@ FD_CASES = [(16, 5, 5, 64, 80, 79, 1024), (2, 5, 5, 64, 1024, 1100, 1024),
             # internvl2-2b's (G 2 x hd 128), whose cache keeps 256 slots
             # for patches past the 80 of its prompt and new tokens
             (16, 8, 3, 64, 80, 79, 0), (16, 4, 8, 64, 80, 79, 0),
-            (16, 8, 6, 128, 80, 79, 0), (16, 8, 2, 128, 336, 79, 0)]
+            (16, 8, 6, 128, 80, 79, 0), (16, 8, 2, 128, 336, 79, 0),
+            # whisper-tiny's decoder self-attention (6 KV heads, G 1, hd 64)
+            (16, 6, 1, 64, 80, 79, 0)]
 FD_DTYPES = [("float32", "float32"), ("bfloat16", "float32"),
              ("bfloat16", "bfloat16")]
 
@@ -840,45 +880,49 @@ def test_hymba_smoke_kernel_path_matches_plain_path(compute, monkeypatch):
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-7b",
                                   "falcon-mamba-7b", "internlm2-20b",
                                   "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
-                                  "internvl2-2b"])
+                                  "internvl2-2b", "whisper-tiny"])
 def test_decoder_smoke_kernel_path_matches_plain_path(arch, compute,
                                                       monkeypatch):
     """The other decoder families at smoke size (starcoder2's window 16
     wraps its ring; internvl2 prefills 16 patch embeddings before its
-    prompt): each kernel of the family's path launched as often as its
-    layers ask, logits held against the plain versions.  internlm2 and
-    qwen3-moe run on bf16 weights, as they are served."""
+    prompt; whisper-tiny encodes 32 stub frames, and its prefill's cross
+    attention reads them): each kernel of the family's path launched as
+    often as its layers ask, logits held against the plain versions.
+    internlm2 and qwen3-moe run on bf16 weights, as they are served."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts
+    from repro_torch.models import api, encdec, lm
     from repro_torch.models import layers as L
-    from repro_torch.models import lm
 
     cfg = get_config(arch).smoke()
     wdt = (torch.bfloat16 if arch in ("internlm2-20b", "qwen3-moe-30b-a3b")
            else torch.float32)
-    params = lm.init_lm(cfg, torch.Generator("cuda").manual_seed(0),
-                        device="cuda", dtype=wdt)
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             device="cuda", dtype=wdt)
     cdt = getattr(torch, compute)
     rng = np.random.default_rng(10)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24))
                             .astype(np.int32)).cuda()
     forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2))
                               .astype(np.int32)).cuda()
-    patches, P = None, 0
-    if cfg.frontend == "vision":
-        P = cfg.num_patches
-        patches = torch.from_numpy(rng.standard_normal(
-            (2, P, cfg.d_model)).astype(np.float32)).cuda()
+    # the prefill's other input: patch embeddings (their slots are cached)
+    # or the encoder's frames
+    model, extra, P = (encdec if cfg.cross_attention else lm), None, 0
+    if cfg.frontend != "none":
+        n = cfg.num_patches if cfg.frontend == "vision" else cfg.num_frames
+        extra = torch.from_numpy(rng.standard_normal(
+            (2, n, cfg.d_model)).astype(np.float32)).cuda()
+        P = n if cfg.frontend == "vision" else 0
 
     def run():
-        logits, cache = lm.prefill(params, cfg, toks, patches,
-                                   max_len=28 + P,
-                                   cache_dtype=torch.float32,
-                                   compute_dtype=cdt)
+        logits, cache = model.prefill(params, cfg, toks, extra,
+                                      max_len=28 + P,
+                                      cache_dtype=torch.float32,
+                                      compute_dtype=cdt)
         out = [logits]
         for t in range(3):
-            logits, cache = lm.decode_step(params, cfg, forced[t], cache,
-                                           compute_dtype=cdt)
+            logits, cache = model.decode_step(params, cfg, forced[t], cache,
+                                              compute_dtype=cdt)
             out.append(logits)
         return torch.stack(out).float()
 
@@ -891,7 +935,10 @@ def test_decoder_smoke_kernel_path_matches_plain_path(arch, compute,
     norms = (Ly * (2 if cfg.d_ff else 1) + 1
              if cfg.norm == "rmsnorm" else 0)
     assert n["rmsnorm"] == 4 * norms
-    assert n["flash_attention"] == (Ly if cfg.has_attention else 0)
+    # an encoder-decoder's prefill also attends across (one launch a
+    # decoder layer) and runs its encoder's layers
+    attn = Ly * (2 if cfg.cross_attention else 1) + cfg.encoder_layers
+    assert n["flash_attention"] == (attn if cfg.has_attention else 0)
     assert n["flash_decode"] == (3 * Ly if cfg.has_attention else 0)
     assert n["ssm_scan"] == (Ly if cfg.has_ssm else 0)
     for name, ref in (("rmsnorm", rmsnorm_ref),

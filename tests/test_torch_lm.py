@@ -136,10 +136,23 @@ def test_init_lm_has_the_reference_layout(hymba):
 
 
 def test_unported_families_raise(hymba):
+    """Every family the reference serves dispatches in the port now: a
+    cross-attention config builds the encoder-decoder's tree and cache
+    (``tests/test_torch_encdec.py`` holds them against the reference), a
+    decoder its LM cache."""
     _, tc, _, _ = hymba
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        api.init_params(tc.replace(cross_attention=True), g, device="cpu")
+    wc = get_config("whisper-tiny").smoke()
+    tree = api.init_params(wc, g, device="cpu")
+    assert sorted(tree) == ["dec_blocks", "dec_norm", "embed", "enc_blocks",
+                            "enc_norm", "lm_head"]
+    assert tree["enc_blocks"]["attn"]["wq"].shape[0] == wc.encoder_layers
+    assert tree["dec_blocks"]["xattn"]["wk"].shape[0] == wc.num_layers
+    wcache = api.init_cache(wc, 2, 40, device="cpu")
+    assert wcache["k"].shape == (wc.num_layers, 2, 40, wc.num_kv_heads,
+                                 wc.resolved_head_dim)
+    assert wcache["cross_k"].shape == (wc.num_layers, 2, wc.num_frames,
+                                       wc.num_kv_heads, wc.resolved_head_dim)
     cache = api.init_cache(tc, 2, 40, device="cpu")
     assert cache["k"].shape == (tc.num_layers, 2, 16, tc.num_kv_heads,
                                 tc.resolved_head_dim)    # clamped to window
