@@ -35,7 +35,11 @@ non-zero:
            128 on a 4096-slot ring; and whisper-tiny's: attention over its
            1500 encoder frames, its prefill's cross attention (64 queries
            over the 1500 frames), its decoder's causal S 64 and its decode
-           step (G 1 x hd 64, 80 slots).
+           step (G 1 x hd 64, 80 slots); qwen2-72b's decode step (B 8,
+           G 8 x hd 128, 80 slots) and its sequence-sharded read: 4
+           shards of 1024 slots, each read with its log-sum-exp (`lse`),
+           then the combine, against the reference's shard_map formula
+           (in bf16 q over an fp32 cache and in fp32).
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
            vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
@@ -62,10 +66,11 @@ non-zero:
            counts before they run and read them after.
   generate launch/serve_llm's engine for hymba-1.5b, stablelm-1.6b,
            starcoder2-7b, falcon-mamba-7b, internlm2-20b (bf16 weights),
-           granite-moe-3b-a800m, qwen3-moe-30b-a3b (bf16 weights) and
-           internvl2-2b, each at its published width (random weights) and
-           alone on the card: 32 prompts of 64 tokens in two waves of 16,
-           16 greedy tokens each.  Launch counts are
+           granite-moe-3b-a800m, qwen3-moe-30b-a3b (bf16 weights),
+           internvl2-2b and qwen2-72b (bf16 weights, 24 of its 80 layers:
+           47.1 GB), each at its published width (random weights) and
+           alone on the card: 32 prompts of 64 tokens in two waves of 16
+           (qwen2-72b: 16 in waves of 8), 16 greedy tokens each.  Launch counts are
            zeroed just before each engine is built and read just after its
            last answer; each family's kernels must have run.  Then, off the
            counted path: teacher-forced logits of the kernel path against
@@ -101,6 +106,22 @@ non-zero:
            the kernels against the plain versions (max-abs, reported), and
            host clock, device busy time and idle share of encode, prefill
            and one decode step.
+  mesh     4 logical devices placed round-robin on the visible cards
+           (printed on a line of its own).  (a) bge-large-zh-v1.5's embed
+           tier through ShardedEmbedderBackend fanned out over them, fp32
+           and bf16, 24 queries of 8-96 tokens, against the one-device
+           backend on the same queries: fp32 within 1e-5 max-abs, bf16 at
+           cosine 0.999.  (b) qwen2-72b at its published width, 24 of 80
+           layers on bf16 weights, fp32 compute and cache, through
+           steps/serve.py's builders on a (1, 4) mesh with
+           decode_shard_map: a 256-slot cache split into 4 shards of 64,
+           B 4, after a 200-token prompt (shards 0-2 full, shard 3 the
+           owner) and a 40-token one (shards 1-3 empty), 16 greedy decode
+           steps, against the same steps on the whole cache: tokens equal,
+           k and v within 1e-6 of their largest magnitude.  Launch counts
+           are zeroed just before the fanned-out and the sharded runs and
+           read just after; one flash_decode launch a shard a layer a
+           step.  No speed across cards is claimed.
   profile  (only when named) one bge forward at B=16 x S=96 under each
            policy, and one prefill (B=16 x S=64) and decode step of each
            of the eight decoders:
@@ -131,7 +152,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("build", "kernels", "golden", "serve", "offload", "chaos",
-          "generate", "encdec")
+          "generate", "encdec", "mesh")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # fp32 outside the tensor cores
@@ -174,12 +195,17 @@ COSINE_BAR = 0.99
 # starcoder2-7b also takes one prompt longer than its 4096-token window
 DECODERS = ("stablelm-1.6b", "starcoder2-7b", "falcon-mamba-7b",
             "internlm2-20b", "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
-            "internvl2-2b")
+            "internvl2-2b", "qwen2-72b")
 LM_ARCHS = (LM_ARCH,) + DECODERS
 MOE = ("granite-moe-3b-a800m", "qwen3-moe-30b-a3b")
-# served on bf16-resident weights: 39.7 GB and 60.2 GB (fp32 would take
-# 79.4 GB and 120 GB of the card's 80)
-BF16_WEIGHTS = ("internlm2-20b", "qwen3-moe-30b-a3b")
+# served on bf16-resident weights: 39.7 GB, 60.2 GB and (24 layers) 47.1 GB
+# (fp32 would take 79.4 GB, 120 GB and 94.2 GB of the card's 80)
+BF16_WEIGHTS = ("internlm2-20b", "qwen3-moe-30b-a3b", "qwen2-72b")
+# qwen2-72b keeps its published width with its depth cut to what one card
+# holds: 24 of 80 layers (1.76 GB of bf16 weights a layer, 4.98 GB for the
+# embedding and the head); served in waves of 8
+DEPTH_CUTS = {"qwen2-72b": 24}
+GEN_B = {"qwen2-72b": 8}
 VLM_PATCH_B = 16                     # the patch-prefix prefill's batch
 # the encoder-decoder, at LM_B x LM_PROMPT + LM_NEW over its 1500 frames
 ENC_ARCH = "whisper-tiny"
@@ -204,6 +230,14 @@ LM_KERNELS = {LM_ARCH: ("rmsnorm", "flash_attention", "ssm_scan",
 # execution 1 fails and execution 3 is corrupted
 OFFLOAD_SLO, OFFLOAD_QUERIES = 0.5, 56
 CHAOS_WAVES, CHAOS_WAVE, CHAOS_FAIL, CHAOS_CORRUPT = 4, 8, {1}, {3}
+# the mesh phase: 4 logical devices placed round-robin on the visible
+# cards; bge's embed tier fanned out over them, and qwen2-72b's decode on
+# a 256-slot cache split into 4 shards of 64, B 4, after prompts of 200
+# (shards 0-2 full, shard 3 the owner) and 40 tokens (shards 1-3 empty),
+# 16 greedy tokens
+MESH_POSITIONS = 4
+MESH_ARCH, MESH_B, MESH_CACHE, MESH_PROMPTS, MESH_NEW = (
+    "qwen2-72b", 4, 256, (200, 40), 16)
 
 
 def emit(obj) -> None:
@@ -701,6 +735,70 @@ def flash_decode_case(dev, B, KV, G, hd, Sc, pos, window, qdt, cdt) -> dict:
     return out
 
 
+def flash_decode_lse_case(dev, B, KV, G, hd, shards, slots, qdt,
+                          cdt) -> dict:
+    """The sequence-sharded decode read (``flash_decode_sharded``): a cache
+    of ``shards * slots`` valid slots split into shards, each read by the
+    kernel with its log-sum-exp, then the combine on the home device;
+    against the plain version (the reference's shard_map formula) and, for
+    the log-sum-exps, each shard's plain ``lse``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import (decode_attention_ref,
+                                                  flash_decode,
+                                                  flash_decode_sharded,
+                                                  sharded_decode_ref)
+
+    rng = np.random.default_rng(8)
+    Sc = shards * slots
+    pos = Sc - 1
+    q = torch.from_numpy(rng.standard_normal((B, KV, G, hd), np.float32)
+                         ).to(dev, qdt)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Sc, KV, hd), np.float32)
+                             ).to(dev, cdt) for _ in range(2))
+    kpos = ring_kpos(dev, Sc, pos)
+    ks, vs, kps = (list(t.split(slots, dim)) for t, dim in
+                   ((k, 1), (v, 1), (kpos, 0)))
+    got = flash_decode_sharded(q, ks, vs, kps, pos)
+    want = sharded_decode_ref(q, ks, vs, kps, pos)
+    err, mag = _rel_err(got, want)
+    tol = (1e-4 if qdt == torch.float32 else 2e-2) * mag
+    lse_err = lse_mag = 0.0
+    for kk, vv, kp in zip(ks, vs, kps):
+        lse = flash_decode(q, kk, vv, kp, pos, lse=True)[1]
+        ref = decode_attention_ref(q, kk, vv, kp, pos, lse=True)[1]
+        e, m = _rel_err(lse, ref)
+        lse_err, lse_mag = max(lse_err, e), max(lse_mag, m)
+    lse_ok = lse_err <= 1e-4 * max(lse_mag, 1.0)
+    out = {"B": B, "KV": KV, "G": G, "hd": hd, "shards": shards,
+           "slots_per_shard": slots, "pos": pos,
+           "dtype": f"q {dtype_name(qdt)}, cache {dtype_name(cdt)}",
+           "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+           "ok": err <= tol and lse_ok and got.dtype == qdt}
+    # q and the output once, every slot's k and v rows once (all valid),
+    # kpos; QK and PV over the slots
+    nbytes = (2 * B * KV * G * hd * q.element_size()
+              + 2 * B * KV * Sc * hd * k.element_size() + 4 * Sc)
+    out["bound_ms"], out["bound_by"] = bound(
+        nbytes, 4 * B * KV * G * hd * Sc, "float32")
+    out["kernel_ms"] = time_ms(
+        lambda: flash_decode_sharded(q, ks, vs, kps, pos), dev)
+    # the shards' launches alone, without the combine's plain ops
+    out["lse_launches_ms"] = time_ms(
+        lambda: [flash_decode(q, kk, vv, kp, pos, lse=True)
+                 for kk, vv, kp in zip(ks, vs, kps)], dev)
+    out["plain_ms"] = time_ms(
+        lambda: sharded_decode_ref(q, ks, vs, kps, pos), dev)
+    q4 = q.reshape(B, KV * G, 1, hd)
+    ke, ve = (t.transpose(1, 2).repeat_interleave(G, 1).to(qdt).contiguous()
+              for t in (k, v))
+    out["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q4, ke, ve), dev)
+    return out
+
+
 def phase_kernels(args, dev) -> dict:
     import torch
 
@@ -852,7 +950,16 @@ def phase_kernels(args, dev) -> dict:
                                   (1, 6, 128, Sc), (2, 2, 128, Sc + 16)))),
           # whisper-tiny's decoder self-attention (6 KV heads, G 1, hd 64)
           flash_decode_case(dev, Bl, 6 if t else 2, 1, 64 if t else 32, Sc,
-                            Sc - 1, 0, bf16, f32)]
+                            Sc - 1, 0, bf16, f32),
+          # qwen2-72b's served decode step (B 8, 8 KV heads, G 8 x hd 128)
+          flash_decode_case(dev, GEN_B[MESH_ARCH], 8 if t else 1, 8,
+                            128 if t else 32, Sc, Sc - 1, 0, bf16, f32)]
+    # qwen2-72b's sequence-sharded read: 4 shards of 1024 slots (on the
+    # CPU: of 16), in the served (q, cache) pair and in fp32
+    fd_lse = [flash_decode_lse_case(dev, GEN_B[MESH_ARCH], 8 if t else 1, 8,
+                                    128 if t else 32, MESH_POSITIONS,
+                                    1024 if t else 16, qdt, f32)
+              for qdt in (bf16, f32)]
     cases = ([("flash_attention", c) for c in attn]
              + [("pool_norm", c) for c in pools]
              + [("quant_matmul", c) for c in qm]
@@ -860,7 +967,7 @@ def phase_kernels(args, dev) -> dict:
              + [("w8a8_matmul", c) for c in w8]
              + [("rmsnorm", c) for c in rms]
              + [("ssm_scan", c) for c in ssm]
-             + [("flash_decode", c) for c in fd])
+             + [("flash_decode", c) for c in fd + fd_lse])
     for name, c in cases:
         emit({"phase": "kernels", "kernel": name, **c})
     bad = [c for _, c in cases if not c["ok"]]
@@ -913,7 +1020,10 @@ def phase_kernels(args, dev) -> dict:
                           "qwen3_served_G8_hd64": fd[11],
                           "internlm2_served_G6_hd128": fd[12],
                           "internvl2_served_G2_hd128_336_slots": fd[13],
-                          "whisper_served_G1_hd64": fd[14]}}}
+                          "whisper_served_G1_hd64": fd[14],
+                          "qwen2_served_G8_hd128": fd[15],
+                          "qwen2_lse_4x1024_q_bf16_cache_f32": fd_lse[0],
+                          "qwen2_lse_4x1024_q_f32_cache_f32": fd_lse[1]}}}
 
 
 def golden_tree():
@@ -1516,12 +1626,15 @@ def generate_one(dev, arch: str) -> tuple:
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    n, prompt, new = 32, LM_PROMPT, LM_NEW
+    bsz = GEN_B.get(arch, LM_B)
+    n, prompt, new = 2 * bsz, LM_PROMPT, LM_NEW
     reset_launch_counts()                 # this model's path starts here
     t0 = time.monotonic()
     wdt = torch.bfloat16 if arch in BF16_WEIGHTS else torch.float32
     engine, cfg, _ = build_engine(arch, smoke=not cuda, device=dev,
-                                  new_tokens=new, weights_dtype=wdt)
+                                  new_tokens=new, weights_dtype=wdt,
+                                  layers=DEPTH_CUTS.get(arch) if cuda
+                                  else None)
     build_s = time.monotonic() - t0
     try:
         be = engine.backends[CPU]
@@ -1539,7 +1652,8 @@ def generate_one(dev, arch: str) -> tuple:
         counts = launch_counts()          # ... and ends here
         s = engine.stats
         out = {"model": cfg.name, "layers": cfg.num_layers,
-               "d_model": cfg.d_model, "params_bytes": be.params_nbytes,
+               "batch": bsz, "d_model": cfg.d_model,
+               "params_bytes": be.params_nbytes,
                "weights_dtype": dtype_name(wdt), "build_engine_s": build_s,
                "serve_s": serve_s,
                "served": len(outs), "per_device": dict(s.per_device),
@@ -1565,8 +1679,8 @@ def generate_one(dev, arch: str) -> tuple:
     # bf16 (the served compute) and in fp32 compute (TF32 off); an MoE
     # model's routes of the two runs are compared as well
     toks = be.prompt_tokens([Query(qid=i, payload=q, length=prompt)
-                             for i, q in enumerate(queries[:LM_B])])
-    forced = gen[:LM_B, :-1].T
+                             for i, q in enumerate(queries[:bsz])])
+    forced = gen[:bsz, :-1].T
     torch.backends.cuda.matmul.allow_tf32 = False
     fp32 = LMGenerateBackend(cfg, be.params, max_prompt=prompt,
                              max_new_tokens=new, device=dev,
@@ -1638,7 +1752,7 @@ def generate_one(dev, arch: str) -> tuple:
         out["bf16_decode_vs_prefill_min_cosine"]
         + out.get("bf16_long_decode_vs_prefill_min_cosine", []))
     summary.update({k: out[k] for k in (
-        "layers", "d_model", "params_bytes", "weights_dtype", "serve_s",
+        "layers", "batch", "d_model", "params_bytes", "weights_dtype", "serve_s",
         "prefill_ms", "decode_ms_per_step", "kernel_vs_plain_flipped_routes",
         "fp32_kernel_vs_plain_flipped_routes", "dropped_share_prefill",
         "dropped_share_decode", "capacity",
@@ -1972,6 +2086,8 @@ def profile_lm(dev, arch, rng, sync, acts, trace) -> dict:
     cfg = get_config(arch)
     if dev.type != "cuda":
         cfg = cfg.smoke()
+    elif arch in DEPTH_CUTS:
+        cfg = cfg.replace(num_layers=DEPTH_CUTS[arch])
     wdt = torch.bfloat16 if arch in BF16_WEIGHTS else torch.float32
     params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
                         device=dev, dtype=wdt)
@@ -2005,6 +2121,189 @@ def profile_lm(dev, arch, rng, sync, acts, trace) -> dict:
     return out
 
 
+def mesh_devices(dev) -> list:
+    """MESH_POSITIONS logical devices placed round-robin on the visible
+    cards (on the CPU: the CPU each time)."""
+    import torch
+
+    if dev.type != "cuda":
+        return [dev] * MESH_POSITIONS
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(MESH_POSITIONS)]
+
+
+def mesh_fanout(dev, devices) -> tuple:
+    """bge-large-zh-v1.5's embed tier fanned out over ``devices`` in fp32
+    and bf16 against the one-device backend on the same queries.  Returns
+    (summary, launches of the fanned-out runs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.routing import Query
+    from repro_torch.core.sharded_backend import ShardedEmbedderBackend
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg, params = bge_fp32(dev)
+    rng = np.random.default_rng(21)
+    # 24 queries of 8-96 tokens: chunks of 16 and 8 rows, 4 and 2 a device
+    lengths = rng.integers(8, 97, 24)
+    qs = [Query(qid=i, payload=rng.integers(1, cfg.vocab_size, n), length=n)
+          for i, n in enumerate(lengths)]
+    out, counts = {"model": cfg.name, "queries": len(qs)}, {}
+    for dtype in ("fp32", "bf16"):
+        one = ShardedEmbedderBackend(cfg, params, max_tokens=96, dtype=dtype,
+                                     device=dev)
+        want = np.stack(one.embed_batch(qs))
+        del one
+        fan = ShardedEmbedderBackend(cfg, params, max_tokens=96, dtype=dtype,
+                                     devices=devices, async_dispatch=True)
+        reset_launch_counts()                 # the fanned-out run ...
+        got = np.stack(fan.embed_batch_async(qs)())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        after = launch_counts()               # ... ends here
+        counts = {k: counts.get(k, 0) + after[k] for k in after}
+        err = float(np.abs(got - want).max())
+        cos = float((got * want).sum(-1).min())
+        norm_err = float(np.abs(np.linalg.norm(got, axis=-1) - 1.0).max())
+        out[dtype] = {"backend": fan.name, "device_count": fan.device_count,
+                      "min_batch_bucket": fan.min_batch_bucket,
+                      "max_abs_err_vs_one_device": err,
+                      "min_cosine_vs_one_device": cos,
+                      "max_norm_err": norm_err, "launches": after}
+        require(got.shape == want.shape and np.isfinite(got).all()
+                and norm_err <= 1e-3, f"fan-out {dtype}: bad vectors")
+        # fp32: the same function on other row blocks, 1e-5 as the golden
+        # bar on the card; bf16: a GEMM of other rows may take another
+        # cuBLAS kernel, so the vectors are held at cosine 0.999
+        require(err <= 1e-5 if dtype == "fp32" else cos >= 0.999,
+                f"fan-out {dtype} vs one device: max abs {err}, cosine {cos}")
+        del fan
+    emit({"phase": "mesh", "fanout": out})
+    return out, counts
+
+
+def mesh_decode(dev, devices) -> tuple:
+    """qwen2-72b at its published width (its depth cut, bf16-resident
+    weights, fp32 compute and cache) through steps/serve.py's builders on a
+    (1, 4) mesh with ``decode_shard_map``: each prompt's cache split over
+    the 4 shards, 16 greedy decode steps, against the same steps on the
+    whole cache.  Returns (summary, launches of the sharded runs)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import perf_flags
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.workload import make_queries
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+    from repro_torch.steps import serve
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = get_config(MESH_ARCH)
+    cfg = (cfg.replace(num_layers=DEPTH_CUTS[MESH_ARCH]) if cuda
+           else cfg.smoke())
+    # on the CPU: 80 slots, 4 shards of 20, prompts of 62 and 12 tokens
+    slots, prompts = ((MESH_CACHE, MESH_PROMPTS) if cuda
+                      else (80, (62, 12)))
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev, dtype=torch.bfloat16)
+    mesh = Mesh(devices, (1, MESH_POSITIONS), ("data", "model"))
+    shape = ShapeConfig("mesh", slots, MESH_B, "decode")
+    kw = dict(cache_dtype=torch.float32, max_len=slots,
+              compute_dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "B": MESH_B, "cache_slots": slots, "shards": MESH_POSITIONS,
+           "mesh": mesh.shape, "weights_dtype": "bfloat16",
+           "compute_dtype": "float32", "cases": []}
+    counts = {}
+    for i, prompt in enumerate(prompts):
+        toks = torch.from_numpy(np.stack(make_queries(
+            MESH_B, cfg.vocab_size, prompt, seed=30 + i))).to(dev)
+        runs = {}
+        for sharded in (False, True):
+            perf_flags.set_flags(decode_shard_map=sharded)
+            try:
+                if sharded:
+                    reset_launch_counts()     # the sharded run ...
+                with torch.inference_mode():
+                    logits, cache = serve.build_prefill_step(
+                        cfg, shape, mesh, **kw)(params, {"tokens": toks})
+                    step = serve.build_decode_step(
+                        cfg, shape, mesh, compute_dtype=torch.float32)
+                    tok, fed = logits.argmax(-1).to(torch.int32), []
+                    sync()
+                    t0 = time.perf_counter()
+                    for _ in range(MESH_NEW):
+                        tok, cache = step(params, cache, {"token": tok})
+                        fed.append(tok)
+                    sync()
+                    step_ms = (time.perf_counter() - t0) * 1e3 / MESH_NEW
+                if sharded:
+                    after = launch_counts()   # ... ends here
+                    counts = {k: counts.get(k, 0) + after[k] for k in after}
+                    shards = cache["kpos"].along(0)
+                    valid = [int((kp >= 0).sum().item()) for kp in shards]
+                    cache = lm.unshard_cache(cache)
+            finally:
+                perf_flags.reset_flags()
+            runs[sharded] = (torch.stack(fed).cpu(), cache, step_ms)
+        (want, whole, whole_ms), (got, shd, shd_ms) = runs[False], runs[True]
+        case = {"prompt": prompt, "valid_slots_per_shard": valid,
+                "owner_shard": (prompt % slots) // (slots // MESH_POSITIONS),
+                "tokens_equal": bool(torch.equal(got, want)),
+                "kpos_equal": bool(torch.equal(shd["kpos"], whole["kpos"])),
+                "whole_decode_ms_per_step": whole_ms,
+                "sharded_decode_ms_per_step": shd_ms}
+        for key in ("k", "v"):
+            err, mag = _rel_err(shd[key], whole[key])
+            case[f"{key}_max_abs_err"], case[f"{key}_max_abs"] = err, mag
+            case[f"{key}_within_1e-6"] = err <= 1e-6 * mag
+        out["cases"].append(case)
+        emit({"phase": "mesh", "decode_case": case})
+        require(case["tokens_equal"] and case["kpos_equal"]
+                and case["k_within_1e-6"] and case["v_within_1e-6"],
+                f"sharded decode after a {prompt}-token prompt differs from "
+                f"the whole cache's: {case}")
+        del runs, whole, shd
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, counts
+
+
+def phase_mesh(args, dev) -> dict:
+    """The mesh layer: 4 logical devices placed round-robin on the visible
+    cards; (a) bge's embed tier fanned out over them against one device,
+    (b) qwen2-72b's decode on a cache whose sequence is split over them
+    against the whole cache.  The launches of the path are those of the
+    fanned-out and sharded runs."""
+    devices = mesh_devices(dev)
+    emit({"phase": "mesh", "placement": [str(d) for d in devices]})
+    fan, fan_counts = mesh_fanout(dev, devices)
+    dec, dec_counts = mesh_decode(dev, devices)
+    counts = {k: fan_counts[k] + dec_counts[k] for k in fan_counts}
+    if dev.type == "cuda":
+        for name in ("flash_attention", "pool_norm", "rmsnorm",
+                     "flash_decode"):
+            require(counts[name] > 0, f"{name} was not launched on the mesh "
+                                      f"path: {counts}")
+        # one flash_decode launch a shard, a layer, a step
+        want = (len(MESH_PROMPTS) * MESH_NEW * dec["layers"]
+                * MESH_POSITIONS)
+        require(dec_counts["flash_decode"] == want,
+                f"flash_decode launches {dec_counts['flash_decode']}, want "
+                f"{want}")
+    return {"placement": [str(d) for d in devices], "fanout": fan,
+            "decode": dec, "launches": counts}
+
+
 # ----------------------------------------------------------------------------
 
 def card_line() -> str:
@@ -2033,8 +2332,10 @@ def kernel_summary(main: dict, by_path: dict) -> dict:
     rows = []
     keys = ("kernel_ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
             "max_abs_err")
-    # fp32 attention's CUDA-core figure; quantize_rows' traffic yardstick
-    extra = ("bound_cuda_core_ms", "yardstick_to_int8_ms")
+    # fp32 attention's CUDA-core figure; quantize_rows' traffic yardstick;
+    # the sharded decode read's launches alone and its log-sum-exps' error
+    extra = ("bound_cuda_core_ms", "yardstick_to_int8_ms", "lse_launches_ms",
+             "lse_max_abs_err")
     for name, source, replaces in KERNELS:
         c = main[name]
         per_path = {path: counts.get(name, 0)
@@ -2112,7 +2413,7 @@ def main() -> int:
     if "kernels" in results:
         by_path = {path: results[path]["launches"]
                    for path in ("serve", "offload", "chaos", "generate",
-                                "encdec")
+                                "encdec", "mesh")
                    if path in results}
         emit(kernel_summary(results["kernels"], by_path))
     if failed or not set(PHASES) <= set(phases):

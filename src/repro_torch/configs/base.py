@@ -147,6 +147,7 @@ ARCH_MODULES = {
     "starcoder2-7b": "starcoder2_7b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "internlm2-20b": "internlm2_20b",
+    "qwen2-72b": "qwen2_72b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "internvl2-2b": "internvl2_2b",

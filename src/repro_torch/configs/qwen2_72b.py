@@ -1,0 +1,17 @@
+"""qwen2-72b — dense GQA LM with QKV bias [arXiv:2407.10671]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-72b",
+    arch_type="dense",
+    block="attn",
+    num_layers=80,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    d_ff=29568,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    source="arXiv:2407.10671 (Qwen2 Technical Report)",
+)

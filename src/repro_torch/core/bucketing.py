@@ -150,22 +150,26 @@ class BucketedEmbedderBackend(TorchEmbedderBackend):
     def prewarm(self, buckets: Iterable[Tuple[int, int]]) -> int:
         """Eagerly run the given (B_bucket, S_bucket) shapes once so serving
         meets no new shape.  Returns how many were new."""
-        torch = self._torch
         new = 0
         for bb, sb in buckets:
             key = (int(bb), int(sb))
             with self._bucket_lock:
                 if key in self._buckets:
                     continue
-            toks = torch.zeros(key, dtype=torch.int32, device=self.device)
-            mask = torch.ones(key, dtype=torch.float32, device=self.device)
-            self._embed(toks, mask).cpu()     # waits for the device
+            self._warm(key)
             # mark warm only AFTER the run succeeds, so an interrupted
             # prewarm can be retried instead of silently no-op'ing
             with self._bucket_lock:
                 self._buckets.add(key)
             new += 1
         return new
+
+    def _warm(self, key: Tuple[int, int]) -> None:
+        """Run one all-padding batch of shape ``key`` and wait for it."""
+        torch = self._torch
+        toks = torch.zeros(key, dtype=torch.int32, device=self.device)
+        mask = torch.ones(key, dtype=torch.float32, device=self.device)
+        self._embed(toks, mask).cpu()         # waits for the device
 
     @staticmethod
     def _qlen(q: Query) -> int:

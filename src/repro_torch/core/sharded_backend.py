@@ -1,11 +1,22 @@
-"""Single-card embedding serving backend: pinned staging ring and
-stream-ordered async dispatch.
+"""Device-sharded embedding serving backend: the embed tier fanned out
+over a data-parallel mesh, a pinned staging ring and stream-ordered async
+dispatch.
 
-The port of the reference's mesh backend, on ONE CUDA device (fan-out over
-several cards waits for the replica/mesh slice of the port):
+The port of the reference's mesh backend:
 
-* **resident serving weights** -- the ``dtype`` policy (fp32 oracle or
-  bf16) is realised ONCE at load and the tree lives on the card; the
+* **mesh fan-out** -- one embedding tier runs over a ``('data', 'model')``
+  mesh of N devices (``launch.mesh.make_serve_mesh``; a pool clamped to a
+  power of two, ``_serve_devices``).  Every padded batch is split into N
+  equal row blocks under ``serve_embed_shardings``' batch spec, each block
+  runs its forward on its own device's serving stream, and the rows come
+  back in order.  The batch bucket is floored at N so every block has
+  rows.  A device may appear several times in the pool (one card carrying
+  several logical shards); one device is the single-card backend.
+* **resident serving weights** -- the ``dtype`` policy (fp32 oracle,
+  bf16, int8 or int8_w8a8) is realised ONCE at load on the home device
+  (the mesh's first), then placed on every device with
+  ``parallel.sharding.shard`` under the serve-mode specs, which replicate
+  the embedder's weights (positions on one device share one copy).  The
   ``pool_norm`` epilogue always accumulates fp32, so served vectors stay
   fp32 unit vectors.
 * **staging ring** -- a small ring of pinned host (tokens, mask) buffers
@@ -13,15 +24,17 @@ several cards waits for the replica/mesh slice of the port):
   host buffer after the call has returned, so a slot must not be refilled
   while an enqueued copy may still read it: the ring rotates, and an
   overrun raises instead of silently rotating embeddings between batches.
-* **async dispatch** -- ``embed_batch_async`` enqueues the host-to-device
-  copy, the forward and a device-to-host copy into pinned memory on a CUDA
-  stream the backend owns, records an event and returns; the fetch thunk
-  waits on that event.  The engine worker double-buffers: batch N-1's fetch
-  overlaps batch N's compute.
+  A batch counts once against the ring, whatever the fan-out.
+* **async dispatch** -- ``embed_batch_async`` enqueues, on each device's
+  stream, the copy of its rows in, the forward and a copy of its results
+  into pinned memory, records an event on every stream and returns; the
+  fetch thunk waits on the events.  The engine worker double-buffers:
+  batch N-1's fetch overlaps batch N's compute.
 
-On ``device="cpu"`` the same code runs eagerly with plain host buffers (the
-CPU tests' route).  Padding rows carry an all-zero mask and pool to zero
-vectors that are dropped from the output.
+On CPU devices the same code runs eagerly with plain host buffers (the
+CPU tests' route, ``[torch.device("cpu")] * 8`` standing in for the
+reference's forced 8-device host).  Padding rows carry an all-zero mask
+and pool to zero vectors that are dropped from the output.
 """
 from __future__ import annotations
 
@@ -35,24 +48,40 @@ from repro_torch.core.bucketing import (BucketedEmbedderBackend,
                                         default_buckets, next_pow2)
 from repro_torch.core.routing import Query
 from repro_torch.core.telemetry import Telemetry
+from repro_torch.core.windve import resolve_device
+
+
+def _serve_devices(devices=None) -> list:
+    """The devices the serve mesh fans out over (default: every visible
+    card), clamped to a power of two so every pow2 batch bucket divides the
+    data axis exactly."""
+    from repro_torch.launch.mesh import visible_devices
+
+    devices = list(visible_devices() if devices is None else devices)
+    if not devices:
+        raise ValueError("need at least one device")
+    usable = 1 << (len(devices).bit_length() - 1)   # largest pow2 <= n
+    return [resolve_device(d) for d in devices[:usable]]
 
 
 class ShardedEmbedderBackend(BucketedEmbedderBackend):
-    """Bucketed embedder on one device with a pinned staging ring and
-    stream-ordered async dispatch.
+    """Bucketed embedder fanned out over a data-parallel device mesh, with
+    a pinned staging ring and stream-ordered async dispatch.
 
-    ``dtype`` / ``async_dispatch`` default to the serving flags
-    (``embed_dtype`` / ``embed_async``), so a default-constructed backend
-    is the paper-faithful fp32 synchronous baseline.  ``devices`` (optional)
-    names the device as a one-element list, as the reference's mesh
-    argument did; more than one raises ``ValueError``.  Counters are
-    inherited from the bucketed backend (``traces``, ``bucket_hits``,
-    ``real_tokens``/``padded_tokens``, ``truncated``).
+    The pool is ``mesh`` if given, else ``devices`` (clamped to a power of
+    two), else the one ``device``.  ``dtype`` / ``async_dispatch`` default
+    to the serving flags (``embed_dtype`` / ``embed_async``), so a
+    default-constructed backend is the paper-faithful fp32 synchronous
+    baseline.  ``device_count`` is the fan-out.  Counters are inherited
+    from the bucketed backend (``traces``, ``bucket_hits``,
+    ``real_tokens``/``padded_tokens``, ``truncated``).  A mesh whose
+    ``model`` axis would split the weights raises ``NotImplementedError``:
+    tensor-parallel serving is not ported.
     """
 
     def __init__(self, cfg, params, max_tokens: int = 128, *,
-                 device="cuda", devices: Optional[Sequence] = None,
-                 dtype: Optional[str] = None,
+                 mesh=None, devices: Optional[Sequence] = None,
+                 device="cuda", dtype: Optional[str] = None,
                  async_dispatch: Optional[bool] = None,
                  min_seq_bucket: int = 16, min_batch_bucket: int = 1,
                  staging_slots: int = 4,
@@ -61,38 +90,60 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
         import torch
 
         from repro_torch import perf_flags
+        from repro_torch.launch.mesh import make_serve_mesh
+        from repro_torch.parallel import sharding
 
-        if devices is not None:
-            devices = list(devices)
-            if not devices:
-                raise ValueError("need at least one device")
-            if len(devices) > 1:
-                raise ValueError(
-                    f"ShardedEmbedderBackend serves on one device, got "
-                    f"{len(devices)}; fan-out over several cards comes with "
-                    f"the replica/mesh slice of the port")
-            device = devices[0]
         flags = perf_flags.FLAGS
         dtype = flags.embed_dtype if dtype is None else dtype
         self.async_dispatch = (flags.embed_async if async_dispatch is None
                                else bool(async_dispatch))
+        if mesh is None:
+            mesh = make_serve_mesh(_serve_devices(
+                [device] if devices is None else devices))
+        ndev = sharding._dp_size(mesh)
+        if ndev != next_pow2(ndev):
+            raise ValueError(f"data-parallel mesh size must be a power of "
+                             f"two, got {ndev}")
+        if mesh.size != ndev:
+            raise NotImplementedError(
+                f"a serve mesh with a model axis, {mesh.shape}, splits the "
+                f"weights: tensor-parallel serving is not ported (ROADMAP.md "
+                f"Queue 1 item 6)")
+        self.mesh = mesh
+        self.device_count = ndev
         # the parent realises the dtype policy ONCE at load (serve_params
-        # validates it) and moves the tree to the device
+        # validates it) on the home device; batch buckets must divide the
+        # data axis: floor the bucket at the mesh size, a power of two
         super().__init__(cfg, params, max_tokens,
                          min_seq_bucket=min_seq_bucket,
-                         min_batch_bucket=next_pow2(min_batch_bucket),
-                         telemetry=telemetry, dtype=dtype, device=device)
-        self.device_count = 1
+                         min_batch_bucket=max(next_pow2(min_batch_bucket),
+                                              ndev),
+                         telemetry=telemetry, dtype=dtype,
+                         device=mesh.device_list[0])
         self.serve_dtype = self.compute_dtype
-        self.name = (f"torch-sharded/{cfg.name}@{self.device}/{dtype}"
+        self.name = (f"torch-sharded/{cfg.name}@{ndev}dev/{dtype}"
                      + ("+async" if self.async_dispatch else ""))
 
+        # the weights laid out over the mesh under the serve-mode specs
+        # (replicated: positions on the home device keep its tree)
+        psh, (_, self._batch_spec) = sharding.serve_embed_shardings(
+            mesh, self.params)
+        placed = sharding.shard_tree(self.params, psh)
+        self._devices = mesh.device_list
+        self._replicas = [sharding.local_tree(placed, i)
+                          for i in range(len(self._devices))]
+        self._block_index = sharding.block_index
+
         cuda = self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self._streams = ([torch.cuda.Stream(d) for d in self._devices]
+                         if cuda else None)
         if cuda:
-            # the weights were written on the caller's stream; the serving
-            # stream must not read them before those writes land
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            # the weights were written on the current streams of the home
+            # device and of each position's device: a serving stream must
+            # not read them before those writes land
+            for st, d in zip(self._streams, self._devices):
+                st.wait_stream(torch.cuda.current_stream(self.device))
+                st.wait_stream(torch.cuda.current_stream(d))
 
         # the staging ring: ``staging_slots`` pinned (tokens, mask) pairs
         # per (B, S) bucket.  The default depth covers the worker's
@@ -126,27 +177,62 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
                                self.max_tokens, self.min_seq_bucket,
                                self.min_batch_bucket)
 
-    def _serving_stream(self):
+    def _on(self, pos: int):
         """Kernels launch on the calling thread's current stream: make it
-        the backend's own for the work of one batch."""
-        if self._stream is None:
+        position ``pos``'s serving stream (and its device current)."""
+        if self._streams is None:
             return contextlib.nullcontext()
-        return self._torch.cuda.stream(self._stream)
+        return self._torch.cuda.stream(self._streams[pos])
+
+    def _split(self, t):
+        """The row blocks of a (B, ...) batch tensor, one a mesh position,
+        each copied to its device on that position's stream."""
+        out = []
+        for pos, dev in enumerate(self._devices):
+            idx = self._block_index(self.mesh, self._batch_spec, t.shape, pos)
+            with self._on(pos):
+                out.append(t[idx].to(dev, non_blocking=True))
+        return out
+
+    def _embed(self, toks, mask):
+        """Each position's forward on its rows (lists from ``_split``), on
+        its own stream; returns the list of per-position outputs.  Counts
+        new (B, S) shapes of the whole batch."""
+        self._count_shape((sum(t.shape[0] for t in toks), toks[0].shape[1]))
+        outs = []
+        with self._torch.inference_mode():
+            for pos in range(len(self._devices)):
+                with self._on(pos):
+                    outs.append(self._embedder.embed(
+                        self._replicas[pos], self.cfg, toks[pos], mask[pos],
+                        compute_dtype=self.compute_dtype,
+                        act_quant=self.act_quant))
+        return outs
+
+    def _warm(self, key) -> None:
+        """One all-padding batch of shape ``key`` on every device; waits for
+        each position's stream."""
+        torch = self._torch
+        outs = self._embed(self._split(torch.zeros(key, dtype=torch.int32)),
+                           self._split(torch.ones(key, dtype=torch.float32)))
+        for pos, out in enumerate(outs):
+            with self._on(pos):
+                out.cpu()
 
     def _new_slot(self, bb: int, sb: int):
         torch = self._torch
-        pin = self._stream is not None
+        pin = self._streams is not None
         return (torch.zeros((bb, sb), dtype=torch.int32, pin_memory=pin),
                 torch.zeros((bb, sb), dtype=torch.float32, pin_memory=pin))
 
     def _stage_chunk(self, chunk: Sequence[Query], bb: int, sb: int):
         """Tokenize into the (bb, sb) bucket's next staging slot and enqueue
-        its copy to the device.  The slot rotates through the ring so a
-        buffer is only refilled ``staging_slots`` batches later -- by which
-        point the double-buffered worker has fetched (hence the device has
-        consumed) the batch that read it.  The lock covers slot pick + fill
-        + copy, so worker threads can share one backend (raise
-        ``staging_slots`` beyond 2 workers)."""
+        the copy of each position's rows to its device.  The slot rotates
+        through the ring so a buffer is only refilled ``staging_slots``
+        batches later -- by which point the double-buffered worker has
+        fetched (hence the devices have consumed) the batch that read it.
+        The lock covers slot pick + fill + copies, so worker threads can
+        share one backend (raise ``staging_slots`` beyond 2 workers)."""
         key = (bb, sb)
         with self._staging_lock:
             pending = self._staging_pending.get(key, 0)
@@ -170,8 +256,7 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
                 toks_t, mask_t = ring[use % len(ring)]
                 _, _, real, truncated = self._tokenize(
                     chunk, sb, out=(toks_t.numpy(), mask_t.numpy()))
-                td = toks_t.to(self.device, non_blocking=True)
-                md = mask_t.to(self.device, non_blocking=True)
+                td, md = self._split(toks_t), self._split(mask_t)
             except Exception:
                 # failed BEFORE the caller could capture the key for its
                 # own rollback: undo the pending count here or the bucket
@@ -200,30 +285,39 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
                           ) -> Callable[[], List[np.ndarray]]:
         """Enqueue every chunk of the batch; returns the deferred fetch.
 
-        On the card this costs staging + launch only: the copies in, the
-        forward and the copy of the results into pinned host memory are
-        all enqueued on the backend's stream, followed by an event.  The
-        fetch thunk waits on the event -- the engine worker calls it one
-        batch late (double buffering) so the copy overlaps the next
-        batch's compute.
+        On the card this costs staging + launch only: on each position's
+        stream, the copy of its rows in, its forward and the copy of its
+        real rows into pinned host memory, then an event on every stream.
+        The fetch thunk waits on the events and puts the rows back in
+        order -- the engine worker calls it one batch late (double
+        buffering) so the copies overlap the next batch's compute.
         """
         torch = self._torch
         self._staging_tl.keys = []
         try:
-            with self._serving_stream():
-                outs = []
-                for n, dev in self._enqueue_chunks(queries):
-                    if self._stream is None:
-                        outs.append(dev[:n])
+            outs = []                 # per chunk: its real rows' blocks
+            for n, parts in self._enqueue_chunks(queries):
+                whole = (sum(p.shape[0] for p in parts), parts[0].shape[1])
+                for pos, part in enumerate(parts):
+                    rows = self._block_index(self.mesh, self._batch_spec,
+                                             whole, pos)[0]
+                    lo, hi = min(rows.start, n), min(rows.stop, n)
+                    if hi == lo:
+                        continue            # padding rows only
+                    if self._streams is None:
+                        outs.append(part[:hi - lo])
                         continue
-                    host = torch.empty((n, dev.shape[1]), dtype=dev.dtype,
-                                       pin_memory=True)
-                    host.copy_(dev[:n], non_blocking=True)
+                    with self._on(pos):
+                        host = torch.empty((hi - lo, part.shape[1]),
+                                           dtype=part.dtype, pin_memory=True)
+                        host.copy_(part[:hi - lo], non_blocking=True)
                     outs.append(host)
-                done = None
-                if self._stream is not None:
-                    done = torch.cuda.Event()
-                    done.record(self._stream)
+            done = []
+            if self._streams is not None:
+                for st in self._streams:
+                    ev = torch.cuda.Event()
+                    ev.record(st)
+                    done.append(ev)
         except Exception:
             # roll back this call's pending counts (e.g. the overrun guard
             # fired on a later chunk) so one failed batch cannot poison the
@@ -235,8 +329,8 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
 
         def fetch() -> List[np.ndarray]:
             try:
-                if done is not None:
-                    done.synchronize()
+                for ev in done:
+                    ev.synchronize()
                 out: List[np.ndarray] = []
                 for host in outs:
                     arr = host.numpy().copy()

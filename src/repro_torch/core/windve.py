@@ -176,13 +176,16 @@ class TorchEmbedderBackend(Backend):
         self._shapes: set = set()
         self._shape_lock = threading.Lock()
 
-    def _embed(self, toks, mask):
-        """Run the embedder on device tensors; counts new (B, S) shapes."""
-        key = tuple(toks.shape)
+    def _count_shape(self, key) -> None:
+        """Count a first execution of the padded (B, S) shape ``key``."""
         with self._shape_lock:
             if key not in self._shapes:
                 self._shapes.add(key)
                 self.traces += 1
+
+    def _embed(self, toks, mask):
+        """Run the embedder on device tensors; counts new (B, S) shapes."""
+        self._count_shape(tuple(toks.shape))
         with self._torch.inference_mode():
             return self._embedder.embed(self.params, self.cfg, toks, mask,
                                         compute_dtype=self.compute_dtype,

@@ -15,6 +15,13 @@
 // for an fp32 cache), and sums are fp32.  A masked slot contributes exactly
 // 0, so a row with no valid slot comes out as zeros.
 //
+// Optionally (lse != nullptr) each row's log-sum-exp over the slots it was
+// given is written too, fp32 (B, KV, G): max + log(denominator) in natural
+// units, -1e30 for a row with no valid slot.  That is what a shard of a
+// sequence-sharded cache hands the combine (the reference's shard_map
+// flash-decode, models/layers.py attn_decode_sharded): the cluster merge
+// below already holds every row's max and denominator.
+//
 // What bounds it on this card: memory, and at the decode shapes latency.
 // Each valid slot's k and v rows are read once for the G query heads that
 // share them; the arithmetic is 4 * G * hd flops a slot, about 2.5 flops a
@@ -104,6 +111,17 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// A row's log-sum-exp in natural units from its max (log2 units, scores
+// times scale * log2 e) and its denominator; NEG for a row with no slot.
+// Summed in double, once a row, so the stored fp32 is rounded once: a
+// combine weighs a shard by exp(lse - max), whose relative error is the
+// lse's absolute error.
+__device__ __forceinline__ float lse_of(float mx, float den) {
+  if (!(den > 0.f)) return NEG;
+  const double l2 = static_cast<double>(mx) + log2(static_cast<double>(den));
+  return static_cast<float>(l2 * 0.6931471805599453);
+}
+
 // x as a value of type T sees it: rounded to T, widened back to fp32.
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
@@ -156,9 +174,10 @@ template <typename TQ, typename TC, int NCH, int LG>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
 flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
                     const TC* __restrict__ v, const int* __restrict__ kpos,
-                    TQ* __restrict__ o, int KV, int G, int Sc, int hd,
-                    int chunk, int vec, Strides qs, Strides ks, Strides vs,
-                    float scale_log2, int pos, int window) {
+                    TQ* __restrict__ o, float* __restrict__ lse, int KV,
+                    int G, int Sc, int hd, int chunk, int vec, Strides qs,
+                    Strides ks, Strides vs, float scale_log2, int pos,
+                    int window) {
   constexpr int EPL = 16 / sizeof(TC);     // elements a lane loads a chunk
   constexpr int U = NCH == 1 ? 4 : NCH == 2 ? 2 : 1;   // slots in flight
   constexpr int GPW = 32 / LG;             // groups (cache rows) a warp
@@ -181,6 +200,7 @@ flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
   const TC* kb = k + b * ks.b + h * ks.h;
   const TC* vb = v + b * vs.b + h * vs.h;
   TQ* ob = o + (static_cast<long long>(b) * KV + h) * G * hd;
+  float* lb = lse ? lse + (static_cast<long long>(b) * KV + h) * G : nullptr;
 
   const int g0 = blockIdx.y * GC;            // this block's query heads
   const int gn = min(GC, G - g0);
@@ -363,6 +383,7 @@ flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
     }
     if (CL == 1) {
       ob[(g0 + g) * hd + e] = from_f<TQ>(d > 0.f ? a / d : 0.f);
+      if (lb && e == 0) lb[g0 + g] = lse_of(mx, d);
       continue;
     }
     float* br = bpart + g * row;
@@ -391,13 +412,15 @@ flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
       d += br[hd + 1] * c;
     }
     ob[(g0 + g) * hd + e] = from_f<TQ>(d > 0.f ? a / d : 0.f);
+    if (lb && e == 0) lb[g0 + g] = lse_of(mx, d);
   }
   cluster.sync();            // no block leaves while its part is read
 }
 
 template <typename TQ, typename TC, int NCH, int LG>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         const int* kpos, void* o, int B, int KV, int G,
+                         const int* kpos, void* o, float* lse, int B, int KV,
+                         int G,
                          int Sc, int hd, int vec, Strides qs, Strides ks,
                          Strides vs, int pos, int window, cudaStream_t st) {
   constexpr int U = NCH == 1 ? 4 : NCH == 2 ? 2 : 1;
@@ -444,14 +467,16 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   cfg.numAttrs = CL > 1;       // a lone block is launched as a plain grid
   return cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const TQ*>(q), static_cast<const TC*>(k),
-      static_cast<const TC*>(v), kpos, static_cast<TQ*>(o), KV, G, Sc, hd,
+      static_cast<const TC*>(v), kpos, static_cast<TQ*>(o), lse, KV, G, Sc,
+      hd,
       chunk, vec, qs, ks, vs, LOG2E / sqrtf(static_cast<float>(hd)), pos,
       window);
 }
 
 template <typename TQ, typename TC>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kpos, void* o, int B, int KV, int G, int Sc,
+                   const int* kpos, void* o, float* lse, int B, int KV, int G,
+                   int Sc,
                    int hd, Strides qs, Strides ks, Strides vs, int pos,
                    int window, cudaStream_t st) {
   constexpr int EPL = 16 / sizeof(TC);
@@ -461,9 +486,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       && vs.b % EPL == 0 && vs.s % EPL == 0 && vs.h % EPL == 0
       && reinterpret_cast<uintptr_t>(k) % 16 == 0
       && reinterpret_cast<uintptr_t>(v) % 16 == 0;
-#define WINDVE_FD_LAUNCH(N, L)                                              \
-  return launch_split<TQ, TC, N, L>(q, k, v, kpos, o, B, KV, G, Sc, hd, vec, \
-                                    qs, ks, vs, pos, window, st)
+#define WINDVE_FD_LAUNCH(N, L)                                         \
+  return launch_split<TQ, TC, N, L>(q, k, v, kpos, o, lse, B, KV, G, Sc, \
+                                    hd, vec, qs, ks, vs, pos, window, st)
   if (lanes <= 8) WINDVE_FD_LAUNCH(1, 8);      // one chunk a lane
   if (lanes <= 16) WINDVE_FD_LAUNCH(1, 16);
   if (lanes <= 32) WINDVE_FD_LAUNCH(1, 32);
@@ -480,13 +505,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q (B, KV, G, hd) with strides (qb, qh, qg) and a unit last stride;
 // k, v (B, Sc, KV, hd) with strides (kb, ks, kh) / (vb, vs, vh) and a unit
-// last stride; kpos (Sc,) int32; o (B, KV, G, hd) contiguous, q's type.
+// last stride; kpos (Sc,) int32; o (B, KV, G, hd) contiguous, q's type;
+// lse (B, KV, G) contiguous fp32, or null for none.
 // (q_dtype, c_dtype), 0 = float32 and 1 = bfloat16, one of (0, 0), (1, 0)
 // and (1, 1); k and v share c_dtype.
 // Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int windve_flash_decode(
     const void* q, const void* k, const void* v, const void* kpos, void* o,
-    int q_dtype, int c_dtype, int B, int KV, int G, int Sc, int hd,
+    void* lse_out, int q_dtype, int c_dtype, int B, int KV, int G, int Sc,
+    int hd,
     long long qb, long long qh, long long qg, long long kb, long long ks,
     long long kh, long long vb, long long vs, long long vh, int pos,
     int window, void* stream) {
@@ -495,15 +522,17 @@ extern "C" int windve_flash_decode(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qstr{qb, qg, qh}, kstr{kb, ks, kh}, vstr{vb, vs, vh};
   const int* kp = static_cast<const int*>(kpos);
+  float* lse = static_cast<float*>(lse_out);
   if (q_dtype == 0 && c_dtype == 0)
-    return launch<float, float>(q, k, v, kp, o, B, KV, G, Sc, hd, qstr, kstr,
-                                vstr, pos, window, st);
+    return launch<float, float>(q, k, v, kp, o, lse, B, KV, G, Sc, hd, qstr,
+                                kstr, vstr, pos, window, st);
   if (q_dtype == 1 && c_dtype == 0)
-    return launch<__nv_bfloat16, float>(q, k, v, kp, o, B, KV, G, Sc, hd,
-                                        qstr, kstr, vstr, pos, window, st);
+    return launch<__nv_bfloat16, float>(q, k, v, kp, o, lse, B, KV, G, Sc,
+                                        hd, qstr, kstr, vstr, pos, window,
+                                        st);
   if (q_dtype == 1 && c_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, kp, o, B, KV, G,
-                                                Sc, hd, qstr, kstr, vstr,
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, kp, o, lse, B, KV,
+                                                G, Sc, hd, qstr, kstr, vstr,
                                                 pos, window, st);
   return cudaErrorInvalidValue;
 }

@@ -54,7 +54,7 @@ SIGNATURES = {
                        _I, _I, _I, ctypes.c_float, _P],     # dtype R D eps stream
     "windve_ssm_scan": [_P, _P, _P, _P, _P, _P, _P,         # x dt B C A y h
                         _I, _I, _I, _I, _I, _P],            # dtype B S DI lanes stream
-    "windve_flash_decode": [_P, _P, _P, _P, _P,             # q k v kpos o
+    "windve_flash_decode": [_P, _P, _P, _P, _P, _P,         # q k v kpos o lse
                             _I, _I, _I, _I, _I, _I, _I,     # 2 dtypes B KV G Sc hd
                             _L, _L, _L, _L, _L, _L,         # q, k strides
                             _L, _L, _L,                     # v strides

@@ -5,12 +5,14 @@ Device detector -> estimator calibration (profiling the REAL PyTorch
 embedder for the real pool and the paper-calibrated model for the NPU pool)
 -> queue manager -> threaded engine -> workload replay -> stats.
 
-The real embedding pool runs ``repro_torch.core.sharded_backend`` on one
-device (``--device``, the card by default), and the serving flags select
-the optimized rows::
+The real embedding pool runs ``repro_torch.core.sharded_backend``, fanned
+out over ``--devices N`` of the visible cards (0 = all of them; the pool is
+clamped to a power of two), and the serving flags select the optimized
+rows::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
-        --queries 64 --slo 1.0 --opt embed_dtype=bf16,embed_async=1 --prewarm
+        --devices 0 --queries 64 --slo 1.0 \
+        --opt embed_dtype=bf16,embed_async=1 --prewarm
 
 ``embed_dtype`` is ``fp32`` (the precision oracle), ``bf16``, ``int8``
 (int8 projection weights, fp32 activations) or ``int8_w8a8`` (int8 weights
@@ -18,7 +20,7 @@ and per-row int8 activations at every projection).  With ``--policy
 length-aware`` the dispatch threshold is calibrated from one Eq. 12 fit PER
 seq-length bucket, so it tracks the bucketed service curve instead of a
 hand-picked constant.  ``--device cpu`` runs the same pipeline on the host
-with the kernels' plain versions.
+with the kernels' plain versions, over ``--devices`` CPU positions.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from repro_torch.core.sharded_backend import ShardedEmbedderBackend
 from repro_torch.core.simulator import PAPER_DEVICES, profile_fn_for
 from repro_torch.core.windve import ModeledBackend, WindVE, resolve_device
 from repro_torch.data.workload import make_queries
+from repro_torch.launch.mesh import visible_devices
 from repro_torch.models import embedder
 
 POLICIES = {
@@ -62,9 +65,9 @@ MIN_SEQ_BUCKET = 16
 def build_engine(model: str = "bge-large-zh-v1.5", slo: float = 1.0,
                  smoke: bool = True, heter: bool = True,
                  npu_model: str = "tesla-v100/bge", seed: int = 0,
-                 policy: str = "cascade", npu_devices: int = 1,
-                 prewarm: bool = False, hosts: int = 1, replicas: int = 1,
-                 device="cuda"):
+                 policy: str = "cascade", devices: int = 0,
+                 npu_devices: int = 1, prewarm: bool = False, hosts: int = 1,
+                 replicas: int = 1, device="cuda"):
     cfg = get_config(model)
     if smoke:
         cfg = cfg.smoke()
@@ -89,12 +92,16 @@ def build_engine(model: str = "bge-large-zh-v1.5", slo: float = 1.0,
                               devices=npu_devices)
 
     npu_be = npu_backend(0, 0)
-    # the real pool: one tier on one device (fan-out over several cards
-    # comes with the replica/mesh slice); dtype / async dispatch follow the
-    # embed_* serving flags
-    cpu_be = ShardedEmbedderBackend(cfg, params, max_tokens=MAX_TOKENS,
-                                    device=dev, min_seq_bucket=MIN_SEQ_BUCKET)
-    print(f"[serve] embed pool: {cpu_be.name}")
+    # the real pool: one tier fans out over the visible cards (on the CPU:
+    # over `devices` positions of the host); dtype / async dispatch follow
+    # the embed_* serving flags
+    local = visible_devices() if dev.type == "cuda" else [dev] * max(devices, 1)
+    cpu_be = ShardedEmbedderBackend(
+        cfg, params, max_tokens=MAX_TOKENS,
+        devices=local[:devices] if devices else local,
+        min_seq_bucket=MIN_SEQ_BUCKET)
+    print(f"[serve] embed pool: {cpu_be.name} "
+          f"(mesh fan-out over {cpu_be.device_count}/{len(local)} devices)")
     if prewarm:
         n = cpu_be.prewarm(cpu_be.warm_grid(max_batch=16))
         print(f"[serve] prewarmed {n} (B, S) buckets — no new shape while "
@@ -276,6 +283,9 @@ def main() -> None:
                          "retry_backoff_ms=N,breaker=N,breaker_cooldown_ms=N"
                          "; overload control: admission=on,reject_cost=X,"
                          "watermark=N,brownout=on")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="devices the embed tier fans out over (0 = all "
+                         "visible cards; with --device cpu, CPU positions)")
     ap.add_argument("--npu-devices", type=int, default=1,
                     help="devices the MODELED accelerator tier fans out "
                          "over (DES-calibrated Eq. 12 fan-out curve)")
@@ -294,7 +304,7 @@ def main() -> None:
     if args.opt:
         perf_flags.set_flags(**perf_flags.parse_opt(args.opt))
     engine, cfg = build_engine(args.model, args.slo, heter=not args.no_heter,
-                               policy=args.policy,
+                               policy=args.policy, devices=args.devices,
                                npu_devices=args.npu_devices,
                                prewarm=args.prewarm,
                                hosts=args.hosts, replicas=args.replicas,

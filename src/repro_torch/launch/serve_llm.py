@@ -10,9 +10,12 @@ and ``adaptive.attach`` refits the depths from live batch latencies::
 
 ``--arch`` names a decoder the port serves: hymba-1.5b (the default),
 stablelm-1.6b, starcoder2-7b, falcon-mamba-7b, internlm2-20b,
-granite-moe-3b-a800m, qwen3-moe-30b-a3b or internvl2-2b.  Each runs at its
-published width with random weights from a seeded generator; ``--smoke``
-takes the reduced config.  ``--weights bf16`` keeps the weights in bf16
+granite-moe-3b-a800m, qwen3-moe-30b-a3b, internvl2-2b or qwen2-72b.  Each
+runs at its published width with random weights from a seeded generator;
+``--smoke`` takes the reduced config, ``--layers N`` keeps the published
+width and cuts the depth to N layers (qwen2-72b's 80 layers hold 145 GB of
+bf16 weights; 24 of them, 47 GB with the embedding and head, fit one
+card).  ``--weights bf16`` keeps the weights in bf16
 (the default fp32 casts them to the bf16 compute at every use; the values
 used are the same): internlm2-20b and qwen3-moe-30b-a3b fit one 80 GB card
 only so.  ``--opt moe_row_dispatch=1`` dispatches an MoE block's tokens
@@ -47,15 +50,17 @@ WEIGHTS = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 def build_engine(arch: str = "hymba-1.5b", smoke: bool = False,
                  device="cuda", new_tokens: int = 16, slo: float = 30.0,
-                 weights_dtype=torch.float32):
+                 weights_dtype=torch.float32, layers: Optional[int] = None):
     """(engine, cfg, calibrator): the real generation tier (``CPU``, as in
     the reference's example and the port's embedding server) on
     ``device`` and the modeled pool (``NPU``), with the online calibrator
     attached.  Weights are random, of ``weights_dtype``, from a generator
-    seeded with 0."""
+    seeded with 0.  ``layers`` cuts the depth."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     dev = resolve_device(device)
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              device=dev, dtype=weights_dtype)
@@ -82,6 +87,8 @@ def main(argv: Optional[List[str]] = None) -> List[np.ndarray]:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--weights", choices=sorted(WEIGHTS), default="fp32",
                     help="the resident weights' dtype")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to N layers (0: the config's)")
     ap.add_argument("--opt", default="",
                     help="perf flags, k=v,... (e.g. moe_row_dispatch=1)")
     ap.add_argument("--queries", type=int, default=12)
@@ -93,7 +100,8 @@ def main(argv: Optional[List[str]] = None) -> List[np.ndarray]:
     engine, cfg, cal = build_engine(args.arch, smoke=args.smoke,
                                     device=args.device,
                                     new_tokens=args.new_tokens, slo=args.slo,
-                                    weights_dtype=WEIGHTS[args.weights])
+                                    weights_dtype=WEIGHTS[args.weights],
+                                    layers=args.layers)
     real = engine.backends[CPU]
     print(f"[serve-llm] {cfg.name}: generation backend {real.name}, "
           f"{real.params_nbytes} bytes of {args.weights} params")

@@ -16,6 +16,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     return lm.init_lm(cfg, generator, device, dtype)
 
 
+def param_shapes(cfg: ModelConfig, dtype=torch.float32):
+    """The param tree on the meta device: every leaf's shape and dtype, no
+    memory and no random draws (the sharding rules read only shapes)."""
+    return init_params(cfg, None, device="meta", dtype=dtype)
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device="cuda"):
     model = encdec if cfg.cross_attention else lm

@@ -10,7 +10,9 @@ kernel router, which picks by the tensor's device: the CUDA kernel on the
 card, the plain version on the CPU:
 
 - full-sequence attention (self or cross) -> ``kernels.flash_attention``;
-- one-token attention against the KV cache -> ``kernels.flash_decode``;
+- one-token attention against the KV cache -> ``kernels.flash_decode``,
+  and over a sequence-sharded cache -> ``flash_decode_sharded`` (the
+  kernel on each shard with its log-sum-exp, then the combine);
 - RMSNorm -> ``kernels.rmsnorm``;
 - the Mamba-1 prefill scan -> ``kernels.ssm_scan``.
 
@@ -39,7 +41,8 @@ import torch.nn.functional as F
 from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_sharded)
 from repro_torch.kernels.quant_matmul import (quant_matmul,
                                               quant_matmul_w8a8,
                                               quantize_rows, w8a8_matmul)
@@ -62,10 +65,13 @@ def dense_init(g: torch.Generator, shape: tuple, lead: tuple, dtype, device,
     """N(0, scale^2), scale 1/sqrt(fan_in) unless given.  Drawn in fp32 on
     the generator's device one ``shape`` slice (one layer) at a time into a
     tensor of ``dtype``, so the fp32 draw never holds more than one layer:
-    a stacked expert leaf of qwen3-moe-30b-a3b is 38.7 GB in fp32."""
+    a stacked expert leaf of qwen3-moe-30b-a3b is 38.7 GB in fp32.  On the
+    meta device (a tree of shapes) nothing is drawn."""
     if scale is None:
         scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
     w = torch.empty(lead + shape, dtype=dtype, device=device)
+    if w.is_meta:
+        return w
     for part in w.view((-1,) + shape):
         part.copy_(torch.randn(shape, generator=g, device=g.device,
                                dtype=torch.float32) * scale)
@@ -296,12 +302,7 @@ def attn_decode(p: Params, cfg: ModelConfig, x1: torch.Tensor, pos: int,
     ``flash_decode``.  Returns (y (B, 1, D), cache_k, cache_v, kpos)."""
     hd, H = cfg.resolved_head_dim, cfg.num_heads
     B = x1.shape[0]
-    q = dense_apply(p, "wq", x1)
-    if "bq" in p:
-        q = q + p["bq"].to(x1.dtype)
-    q = q.reshape(B, 1, H, hd)
-    if cfg.rope_theta:
-        q = rope(q, _positions(pos, x1.device), cfg.rope_theta)
+    q = project_q(p, cfg, x1, pos)
     k, v = attn_decode_kv(p, cfg, x1, pos)
     slot = cache_slot(cfg, pos, cache_k.shape[1])
     cache_k[:, slot] = k[:, 0]
@@ -311,6 +312,57 @@ def attn_decode(p: Params, cfg: ModelConfig, x1: torch.Tensor, pos: int,
                        pos, window=cfg.sliding_window)
     y = dense_apply(p, "wo", out.reshape(B, 1, H * hd))
     return y, cache_k, cache_v, kpos
+
+
+def project_q(p: Params, cfg: ModelConfig, x1: torch.Tensor,
+              pos: int) -> torch.Tensor:
+    """The current token's (rotated) query: (B, H, hd)."""
+    hd, H = cfg.resolved_head_dim, cfg.num_heads
+    q = dense_apply(p, "wq", x1)
+    if "bq" in p:
+        q = q + p["bq"].to(x1.dtype)
+    q = q.reshape(x1.shape[0], 1, H, hd)
+    if cfg.rope_theta:
+        q = rope(q, _positions(pos, x1.device), cfg.rope_theta)
+    return q[:, 0]
+
+
+def shard_slot(cfg: ModelConfig, pos: int, sizes) -> tuple:
+    """(shard, slot within it) that position ``pos`` writes to in a cache
+    whose slots are split in order into shards of ``sizes``."""
+    slot = cache_slot(cfg, pos, sum(sizes))
+    for i, n in enumerate(sizes):
+        if slot < n:
+            return i, slot
+        slot -= n
+    raise ValueError(f"slot past a cache of {sum(sizes)} slots")
+
+
+def attn_decode_sharded(p: Params, cfg: ModelConfig, x1: torch.Tensor,
+                        pos: int, cache_k, cache_v, kpos):
+    """Flash-decode over a sequence-sharded cache: the reference's
+    shard_map decode (``attn_decode_sharded``) with the shards as lists.
+
+    ``cache_k``/``cache_v`` hold one layer's (B, Sc_i, KV, hd) slice of
+    each shard in slot order and ``kpos`` each shard's ALREADY-UPDATED (Sc_i,)
+    positions, every shard on its own device; x1 (B, 1, D) and the result
+    live on the home device.  Only the owner shard, the one whose slot range
+    holds ``cache_slot(pos)``, takes the new token's k and v (in place).
+    Each shard attends its own slots and the shards combine on the home
+    device (``flash_decode_sharded``: the kernel with its log-sum-exp on
+    the card, the reference's pmax/psum formula in the plain version).
+    Returns (y (B, 1, D), cache_k, cache_v)."""
+    hd, H, KV = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    B = x1.shape[0]
+    q = project_q(p, cfg, x1, pos).reshape(B, KV, H // KV, hd)
+    k, v = attn_decode_kv(p, cfg, x1, pos)
+    i, slot = shard_slot(cfg, pos, [t.shape[1] for t in cache_k])
+    cache_k[i][:, slot] = k[:, 0].to(cache_k[i].device)
+    cache_v[i][:, slot] = v[:, 0].to(cache_v[i].device)
+    out = flash_decode_sharded(q, cache_k, cache_v, kpos, pos,
+                               window=cfg.sliding_window)
+    y = dense_apply(p, "wo", out.reshape(B, 1, H * hd))
+    return y, cache_k, cache_v
 
 
 def cross_decode(p: Params, cfg: ModelConfig, x1: torch.Tensor,
@@ -347,8 +399,9 @@ def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor,
 # ----------------------------------------------------------------------------
 # MoE: top-k routing and capacity-based gather dispatch, the reference's
 # ``apply_moe`` (one global dispatch) and ``_apply_moe_row`` (per batch row).
-# Its ``_mesh_axis_names`` and ``_moe_constrain`` are GSPMD layout hints
-# that do nothing without a device mesh; they are not ported.
+# Its ``_mesh_axis_names`` and ``_moe_constrain`` are GSPMD layout hints;
+# the port places its tensors explicitly (``parallel.sharding.shard``), so
+# they are not ported.
 # ----------------------------------------------------------------------------
 
 def init_moe(g: torch.Generator, cfg: ModelConfig, lead: tuple, dtype,

@@ -21,8 +21,18 @@ cache with ``pos`` advanced.
 
 An MoE block's FFN is ``layers.apply_moe`` in prefill and decode alike,
 its load-balance loss dropped, as in the reference.  The reference's
-``decode_fori`` and ``decode_shard_map`` flags are XLA layouts of the same
-computation and are not ported.
+``decode_fori`` flag is an XLA layout of the same computation and is not
+ported.
+
+Under ``decode_shard_map`` a cache can be laid out over a mesh: with
+``shard_ctx=(mesh, batch axes, seq axes)`` (``steps/serve.py`` builds it),
+``init_cache`` and ``prefill`` place ``k``, ``v`` and ``kpos`` through
+``parallel.sharding.shard`` under the reference's ``cache_pspecs`` entries
+(the sequence over the seq axes; ``ssm``, ``conv`` and ``pos`` stay on
+the home device), and ``decode_step(shard_ctx=)`` attends the shards with
+``layers.attn_decode_sharded``.  A mesh whose data axes hold more than one
+position (batch over ``data``) is not ported: the sequence is the only dim
+the port splits.
 """
 from __future__ import annotations
 
@@ -30,14 +40,16 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.embedder import layer_params, params_from_numpy
+from repro_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
 __all__ = ["init_lm", "init_cache", "prefill", "decode_step", "cache_len",
-           "params_from_numpy"]
+           "shard_cache", "unshard_cache", "params_from_numpy"]
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
@@ -111,8 +123,12 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               dtype=torch.bfloat16, device="cuda") -> Params:
-    """Empty decode cache sized for a context of ``seq_len`` tokens."""
+               dtype=torch.bfloat16, device="cuda", shard_ctx=None) -> Params:
+    """Empty decode cache sized for a context of ``seq_len`` tokens, laid
+    out over ``shard_ctx``'s mesh when one is given (``shard_cache``)."""
+    if shard_ctx is not None:
+        return shard_cache(init_cache(cfg, batch, seq_len, dtype, device),
+                           shard_ctx)
     Lc, hd = cfg.num_layers, cfg.resolved_head_dim
     cache: Params = {"pos": 0}
     if cfg.has_attention:
@@ -129,10 +145,45 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return cache
 
 
+def _seq_only(mesh) -> None:
+    if sharding._dp_size(mesh) > 1:
+        raise NotImplementedError(
+            f"a cache split over the data axes of {mesh.shape} is not "
+            f"ported: the port shards the sequence only (ROADMAP.md Queue 1 "
+            f"item 6, tensor-parallel serving across cards)")
+
+
+def shard_cache(cache: Params, shard_ctx) -> Params:
+    """The cache with ``k``, ``v`` and ``kpos`` placed over the mesh of
+    ``shard_ctx = (mesh, b, seq_axes)`` under the reference's
+    ``cache_pspecs`` entries for them: (None, b, seq, None, None) and
+    (seq,), an entry dropped where its axes do not divide the dim.  The
+    rest stays where it is."""
+    mesh, b, seq_axes = shard_ctx
+    _seq_only(mesh)
+    seq = seq_axes if len(seq_axes) > 1 else seq_axes[0]
+    out = dict(cache)
+    if "k" in cache:
+        for name in ("k", "v"):
+            out[name] = sharding.shard(cache[name], sharding._fit(
+                mesh, cache[name].shape, (None, b, seq, None, None)), mesh)
+        out["kpos"] = sharding.shard(cache["kpos"], sharding._fit(
+            mesh, cache["kpos"].shape, (seq,)), mesh)
+    return out
+
+
+def unshard_cache(cache: Params, device=None) -> Params:
+    """A sharded cache as whole tensors, on ``device`` (default: the first
+    mesh position's)."""
+    return {name: (sharding.unshard(t, device)
+                   if isinstance(t, sharding.Sharded) else t)
+            for name, t in cache.items()}
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             extra_embed: Optional[torch.Tensor] = None, *,
             cache_dtype=torch.bfloat16, max_len: Optional[int] = None,
-            compute_dtype=None) -> Tuple[torch.Tensor, Params]:
+            compute_dtype=None, shard_ctx=None) -> Tuple[torch.Tensor, Params]:
     """Process the prompt tokens (B, S_text); return (last-position logits
     (B, V) in the compute dtype, cache).
 
@@ -145,7 +196,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``min(S, Sc)`` keys; slot i holds absolute position S - keep + i, and
     when a windowed ring is already full the slots are rotated so that
     decode's write to slot ``pos % Sc`` lines up.  ``compute_dtype`` is the
-    activation dtype (None: ``layers.COMPUTE_DTYPE``, bf16)."""
+    activation dtype (None: ``layers.COMPUTE_DTYPE``, bf16).  With
+    ``shard_ctx`` the cache comes back laid out over its mesh
+    (``shard_cache``)."""
     cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
     h, positions = _embed(params, cfg, tokens, 0, cdt, extra_embed)
     B, S = h.shape[:2]
@@ -174,18 +227,28 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 bp["mamba"], cfg, hin)
         h = _mlp(bp, cfg, _mix(cfg, h, a, m))
     cache["pos"] = S
+    if shard_ctx is not None:
+        cache = shard_cache(cache, shard_ctx)
     return _unembed(params, cfg, h[:, -1:])[:, 0], cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                cache: Params, *, compute_dtype=None
+                cache: Params, *, compute_dtype=None, shard_ctx=None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  token: (B,) ints at position ``cache["pos"]``.
     Returns (logits (B, V) in the compute dtype, the cache with this token
-    written into it in place and ``pos`` advanced)."""
+    written into it in place and ``pos`` advanced).
+
+    With the ``decode_shard_map`` flag on and ``shard_ctx`` given (an
+    attention config), the cache is the sharded layout of ``shard_cache``
+    and each layer's attention runs over its sequence shards
+    (``layers.attn_decode_sharded``); the reference's shard_map branch."""
     cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
     pos = cache["pos"]
     h, _ = _embed(params, cfg, token[:, None], pos, cdt)
+    if (perf_flags.FLAGS.decode_shard_map and shard_ctx is not None
+            and cfg.has_attention):
+        return _decode_sharded(params, cfg, h, cache, shard_ctx)
     if cfg.has_attention:
         # slot positions are layer-invariant: update them once
         cache["kpos"][L.cache_slot(cfg, pos, cache["k"].shape[2])] = pos
@@ -200,5 +263,36 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         if cfg.has_ssm:
             m, cache["ssm"][i], cache["conv"][i] = L.mamba_decode(
                 bp["mamba"], cfg, hin, cache["ssm"][i], cache["conv"][i])
+        h = _mlp(bp, cfg, _mix(cfg, h, a, m))
+    return _unembed(params, cfg, h)[:, 0], {**cache, "pos": pos + 1}
+
+
+def _decode_sharded(params: Params, cfg: ModelConfig, h: torch.Tensor,
+                    cache: Params, shard_ctx) -> Tuple[torch.Tensor, Params]:
+    """``decode_step``'s layers over a sequence-sharded cache: attention on
+    the shards, a hybrid block's SSM state on the home device."""
+    _seq_only(shard_ctx[0])
+    if not isinstance(cache["k"], sharding.Sharded):
+        raise TypeError("decode_shard_map: the cache is not laid out over "
+                        "the mesh; build it with shard_ctx "
+                        "(init_cache, prefill or lm.shard_cache)")
+    pos = cache["pos"]
+    ks, vs = cache["k"].along(2), cache["v"].along(2)
+    kposs = cache["kpos"].along(0)
+    # slot positions are layer-invariant: the owner shard's, once
+    i, slot = L.shard_slot(cfg, pos, [t.shape[0] for t in kposs])
+    kposs[i][slot] = pos
+    blocks = params["blocks"]
+    m = None
+    for layer in range(cfg.num_layers):
+        bp = layer_params(blocks, layer)
+        hin = L.apply_norm(bp["norm1"], cfg, h)
+        a = L.attn_decode_sharded(bp["attn"], cfg, hin, pos,
+                                  [t[layer] for t in ks],
+                                  [t[layer] for t in vs], kposs)[0]
+        if cfg.has_ssm:
+            m, cache["ssm"][layer], cache["conv"][layer] = L.mamba_decode(
+                bp["mamba"], cfg, hin, cache["ssm"][layer],
+                cache["conv"][layer])
         h = _mlp(bp, cfg, _mix(cfg, h, a, m))
     return _unembed(params, cfg, h)[:, 0], {**cache, "pos": pos + 1}

@@ -4,7 +4,7 @@ The fields the serving path reads, copied from the reference's
 ``perf_flags.py``.  ``attn_kernel`` and ``embed_donate`` are left out:
 eager PyTorch has nothing they switch (attention follows the tensor's
 device; static buffers for CUDA graphs are later work).  Defaults are the
-paper-faithful baseline.
+reference's, the paper-faithful baseline.
 """
 from __future__ import annotations
 
@@ -64,6 +64,15 @@ class PerfFlags:
     # the row's tokens) instead of one global dispatch over every token
     # of the batch (capacity from all of them).  Off = baseline.
     moe_row_dispatch: bool = False
+    # decode: flash-decode over a sequence-sharded cache -- each shard
+    # attends its own slots (``flash_decode`` with its log-sum-exp) and the
+    # shards combine on the home device; only the owner shard writes the
+    # new token.  Needs a mesh (``steps/serve.build_decode_step``).
+    decode_shard_map: bool = False
+    # serving: place weights tensor/expert-parallel only (resident weights,
+    # no FSDP specs).  Executing that placement across cards is not ported
+    # yet: the serve-step builders raise when it would split a weight.
+    serve_tp_only: bool = False
 
 
 FLAGS = PerfFlags()

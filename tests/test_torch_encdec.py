@@ -481,8 +481,23 @@ def test_serve_step_builders_match_the_reference_builders(
 
 @pytest.mark.parametrize("arch", BUILDER_ARCHS)
 def test_serve_step_builders_refuse_a_mesh(arch):
+    """A mesh whose data axis holds more than one position, or whose model
+    axis would split the weights (``serve_tp_only``), is refused, naming
+    the tensor-parallel item; a (1, 4) mesh is taken."""
+    from repro_torch import perf_flags
+    from repro_torch.launch.mesh import Mesh
+
     tc = get_config(arch).smoke()
     shape = ShapeConfig("t", MAX_LEN, 2, "decode")
+    data2 = Mesh(["cpu"] * 2, (2, 1), ("data", "model"))
+    model4 = Mesh(["cpu"] * 4, (1, 4), ("data", "model"))
     for build in (serve.build_prefill_step, serve.build_decode_step):
-        with pytest.raises(NotImplementedError, match="multi-card"):
-            build(tc, shape, mesh=object())
+        with pytest.raises(NotImplementedError, match="tensor-parallel"):
+            build(tc, shape, mesh=data2)
+        assert callable(build(tc, shape, mesh=model4))
+        perf_flags.set_flags(serve_tp_only=True)
+        try:
+            with pytest.raises(NotImplementedError, match="tensor-parallel"):
+                build(tc, shape, mesh=model4)
+        finally:
+            perf_flags.reset_flags()

@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax_or_repro():
               "configs.falcon_mamba_7b", "configs.internlm2_20b",
               "configs.granite_moe_3b_a800m", "configs.qwen3_moe_30b_a3b",
               "configs.internvl2_2b", "configs.whisper_tiny",
-              "models.encdec", "steps.serve"):
+              "models.encdec", "steps.serve", "launch.mesh",
+              "parallel.sharding", "configs.qwen2_72b"):
         assert f"repro_torch.{m}" in mods
     for k in ("rmsnorm", "flash_decode", "ssm_scan"):
         for part in ("ops", "ref"):

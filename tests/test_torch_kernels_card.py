@@ -804,6 +804,76 @@ def test_flash_decode_reads_a_layer_of_the_stacked_cache_and_a_q_view():
                                      kpos, 39), "float32")
 
 
+# (B, KV, G, hd, Sc, pos, window): qwen2-72b's decode shard (G 8 x hd 128,
+# one 1024-slot shard of a 4096-slot cache, all valid), a shard the
+# window half covers, hymba's served shape, and a shard with no valid slot
+FD_LSE_CASES = [(4, 8, 8, 128, 1024, 1023, 0),
+                (2, 8, 8, 128, 1024, 1500, 1000),
+                (16, 5, 5, 64, 80, 79, 1024), (3, 8, 8, 128, 64, -1, 0)]
+
+
+@pytest.mark.parametrize("dtypes", FD_DTYPES, ids=lambda d: "q-{}-cache-{}"
+                         .format(*d))
+@pytest.mark.parametrize("case", FD_LSE_CASES,
+                         ids=lambda c: "B{}KV{}G{}hd{}Sc{}pos{}w{}".format(*c))
+def test_flash_decode_lse_matches_plain(case, dtypes):
+    """The optional log-sum-exp output: each row's max score plus the log of
+    its denominator, -1e30 and a zero output for a shard with no valid
+    slot."""
+    B, KV, G, hd, Sc, pos, window = case
+    qdt, cdt = dtypes
+    rng = np.random.default_rng(12)
+    q = _on_card(rng.standard_normal((B, KV, G, hd), np.float32), qdt)
+    k, v = (_on_card(rng.standard_normal((B, Sc, KV, hd), np.float32), cdt)
+            for _ in range(2))
+    kpos = _ring_kpos(Sc, pos)
+    before = flash_decode.launches
+    got, lse = flash_decode(q, k, v, kpos, pos, window=window, lse=True)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == (B, KV, G)
+    want, want_lse = decode_attention_ref(q, k, v, kpos, pos, window=window,
+                                          lse=True)
+    if pos < 0:
+        assert (got == 0).all() and (lse == -1e30).all()
+        assert (want_lse == -1e30).all()
+        return
+    _close(got, want, qdt)
+    # the scores' rounding (k to q's type) is the same in both; the sums
+    # differ in order and the kernel's exp2 is approximate
+    assert (lse - want_lse).abs().max().item() <= 1e-4 * max(
+        want_lse.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("dtypes", FD_DTYPES, ids=lambda d: "q-{}-cache-{}"
+                         .format(*d))
+@pytest.mark.parametrize("pos", [4095, 200, 40], ids=lambda p: f"pos{p}")
+def test_flash_decode_sharded_matches_the_whole_cache(pos, dtypes):
+    """qwen2-72b's decode read (G 8 x hd 128) over a 4096-slot cache split
+    into 4 shards of 1024: one launch a shard, the lse combine equal to the
+    whole cache's read and to the reference's shard_map formula; at pos
+    200 and 40 the later shards are empty."""
+    from repro_torch.kernels.flash_decode import (flash_decode_sharded,
+                                                  sharded_decode_ref)
+
+    qdt, cdt = dtypes
+    B, KV, G, hd, Sc = 2, 8, 8, 128, 4096
+    rng = np.random.default_rng(13)
+    q = _on_card(rng.standard_normal((B, KV, G, hd), np.float32), qdt)
+    k, v = (_on_card(rng.standard_normal((B, Sc, KV, hd), np.float32), cdt)
+            for _ in range(2))
+    kpos = _ring_kpos(Sc, pos)
+    ks, vs, kps = (list(t.split(1024, dim)) for t, dim in
+                   ((k, 1), (v, 1), (kpos, 0)))
+    before = flash_decode.launches
+    got = flash_decode_sharded(q, ks, vs, kps, pos)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 4
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, flash_decode(q, k, v, kpos, pos), qdt)
+    _close(got, sharded_decode_ref(q, ks, vs, kps, pos), qdt)
+
+
 def test_lm_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     x, dt, Bm, Cm, A = _ssm_inputs(1, 4, 8, 16, "float32")
     with pytest.raises(ValueError, match="state size"):
@@ -880,14 +950,16 @@ def test_hymba_smoke_kernel_path_matches_plain_path(compute, monkeypatch):
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-7b",
                                   "falcon-mamba-7b", "internlm2-20b",
                                   "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
-                                  "internvl2-2b", "whisper-tiny"])
+                                  "internvl2-2b", "whisper-tiny",
+                                  "qwen2-72b"])
 def test_decoder_smoke_kernel_path_matches_plain_path(arch, compute,
                                                       monkeypatch):
     """The other decoder families at smoke size (starcoder2's window 16
     wraps its ring; internvl2 prefills 16 patch embeddings before its
     prompt; whisper-tiny encodes 32 stub frames, and its prefill's cross
-    attention reads them): each kernel of the family's path launched as
-    often as its layers ask, logits held against the plain versions.
+    attention reads them; qwen2-72b adds q/k/v biases): each kernel of the
+    family's path launched as often as its layers ask, logits held against
+    the plain versions.
     internlm2 and qwen3-moe run on bf16 weights, as they are served."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts
@@ -950,3 +1022,56 @@ def test_decoder_smoke_kernel_path_matches_plain_path(arch, compute,
     scale = want.abs().max().item()
     err = (got - want).abs().max().item()
     assert err <= (1e-4 if compute == "float32" else 5e-2) * scale, err
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "starcoder2-7b",
+                                  "hymba-1.5b", "qwen2-72b"])
+def test_sequence_sharded_decode_matches_the_whole_cache(arch):
+    """decode_shard_map at smoke size with four logical shards on the card
+    (a (1, 4) mesh over one device): the prefill's cache laid out over the
+    mesh, then decode steps through the shards, against the same steps on
+    the whole cache in fp32 compute: tokens equal, caches within 1e-6 of
+    their largest magnitude; one flash_decode launch a shard a layer."""
+    from repro_torch import perf_flags
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+    from repro_torch.steps import serve
+
+    cfg = get_config(arch).smoke()
+    params = lm.init_lm(cfg, torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 21))
+                            .astype(np.int32)).cuda()
+    shape = ShapeConfig("t", 32, 2, "decode")
+    mesh = Mesh(["cuda"] * 4, (1, 4), ("data", "model"))
+    kw = dict(cache_dtype=torch.float32, max_len=32,
+              compute_dtype=torch.float32)
+    runs = {}
+    for flag in (False, True):
+        perf_flags.set_flags(decode_shard_map=flag)
+        try:
+            logits, cache = serve.build_prefill_step(cfg, shape, mesh,
+                                                     **kw)(params,
+                                                           {"tokens": toks})
+            step = serve.build_decode_step(cfg, shape, mesh,
+                                           compute_dtype=torch.float32)
+            tok, fed = logits.argmax(-1).to(torch.int32), []
+            before = launch_counts()["flash_decode"]
+            for _ in range(8):
+                tok, cache = step(params, cache, {"token": tok})
+                fed.append(tok)
+            torch.cuda.synchronize()
+            launched = launch_counts()["flash_decode"] - before
+        finally:
+            perf_flags.reset_flags()
+        runs[flag] = (torch.stack(fed), lm.unshard_cache(cache), launched)
+    (want, whole, n0), (got, sharded, n1) = runs[False], runs[True]
+    assert n0 == 8 * cfg.num_layers and n1 == 4 * n0
+    assert torch.equal(got, want)
+    assert torch.equal(sharded["kpos"], whole["kpos"])
+    for key in ("k", "v"):
+        err = (sharded[key] - whole[key]).abs().max().item()
+        assert err <= 1e-6 * whole[key].abs().max().item(), (key, err)

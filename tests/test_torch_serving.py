@@ -147,11 +147,22 @@ def test_async_fetch_matches_sync(bge_smoke):
 
 
 def test_sharded_backend_refuses_several_devices(bge_smoke):
+    """Several devices fan out now; what is still refused: an empty pool, a
+    data axis that is not a power of two, and a model axis that would
+    split the weights (tensor-parallel serving is not ported)."""
+    from repro_torch.launch.mesh import Mesh
+
     cfg, params = bge_smoke
-    with pytest.raises(ValueError, match="one device"):
-        ShardedEmbedderBackend(cfg, params, devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="at least one"):
         ShardedEmbedderBackend(cfg, params, devices=[])
+    with pytest.raises(ValueError, match="power of two, got 3"):
+        ShardedEmbedderBackend(cfg, params, mesh=Mesh(
+            ["cpu"] * 3, (3, 1), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        ShardedEmbedderBackend(cfg, params, mesh=Mesh(
+            ["cpu"] * 4, (2, 2), ("data", "model")))
+    be = ShardedEmbedderBackend(cfg, params, devices=["cpu", "cpu"])
+    assert be.device_count == 2 and "@2dev" in be.name
 
 
 def test_sharded_dtype_defaults_to_the_serving_flag(bge_smoke):
@@ -244,3 +255,116 @@ def test_threads_sharing_one_backend_serve_unrotated_vectors(bge_smoke):
     for i in range(n_threads):
         np.testing.assert_allclose(got[i], want[i], atol=1e-6)
     assert be._staging_pending == {}
+
+
+# ------------------------------------------------- fan-out over 8 devices --
+FANOUT_LENGTHS = [9, 30, 22, 15, 27, 12, 18, 31, 8, 25]
+
+
+@pytest.fixture(scope="module")
+def reference_fanout(tmp_path_factory):
+    """The reference's 8-device probe (``tests/test_sharded_backend.py``):
+    bge's smoke config on a forced 8-device host pool, in fp32, bf16 and
+    int8, one subprocess; returns (param tree, {dtype: vectors})."""
+    from tests.test_torch_mesh import run_forced
+
+    out = tmp_path_factory.mktemp("fanout") / "fanout.npz"
+    run_forced(8, f"""
+        import numpy as np
+        import jax
+        from repro.configs import get_config
+        from repro.core.routing import Query
+        from repro.core.sharded_backend import ShardedEmbedderBackend
+        from repro.models import embedder
+
+        assert len(jax.devices()) == 8
+        cfg = get_config("bge-large-zh-v1.5").smoke()
+        params = embedder.init_embedder(jax.random.PRNGKey(0), cfg)
+        qs = [Query(qid=i, length=n) for i, n in enumerate({FANOUT_LENGTHS})]
+        arrays = {{}}
+        for dtype in ("fp32", "bf16", "int8"):
+            be = ShardedEmbedderBackend(cfg, params, max_tokens=32,
+                                        dtype=dtype, min_seq_bucket=8)
+            assert be.device_count == 8 and be.min_batch_bucket == 8
+            arrays["vec:" + dtype] = np.stack(be.embed_batch(qs))
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            arrays["param:" + "/".join(p.key for p in path)] = np.asarray(leaf)
+        np.savez(r"{out}", **arrays)
+    """, timeout=600)
+    data = np.load(out)
+    return (unflatten({k: data[k] for k in data.files}, "param:"),
+            {k[4:]: data[k] for k in data.files if k.startswith("vec:")})
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_eight_device_fanout_matches_the_reference_probe(reference_fanout,
+                                                         dtype):
+    """The port's backend over ``[cpu] * 8``: 8 row blocks of every padded
+    batch, each through its own forward, against the reference's 8-device
+    mesh on the same weights and queries (fp32 within 1e-6, int8 within
+    1e-5, bf16 within 1e-2 cosine distance, the port's bars against the
+    JAX package), and bit for bit what the one-device backend serves."""
+    tree, vecs = reference_fanout
+    cfg = get_config("bge-large-zh-v1.5").smoke()
+    qs = [Query(qid=i, length=n) for i, n in enumerate(FANOUT_LENGTHS)]
+    be = ShardedEmbedderBackend(cfg, params_from_numpy(tree, "cpu"),
+                                max_tokens=32, dtype=dtype,
+                                devices=["cpu"] * 8, min_seq_bucket=8,
+                                async_dispatch=True)
+    assert be.device_count == 8 and be.min_batch_bucket == 8
+    assert "@8dev" in be.name
+    got = np.stack(be.embed_batch_async(qs)())
+    want = vecs[dtype]
+    assert got.shape == want.shape and got.dtype == np.float32
+    if dtype == "bf16":
+        cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                      * np.linalg.norm(want, axis=-1))
+        assert 1.0 - cos.min() <= 1e-2
+    else:
+        np.testing.assert_allclose(got, want,
+                                   atol=1e-6 if dtype == "fp32" else 1e-5)
+    one = ShardedEmbedderBackend(cfg, params_from_numpy(tree, "cpu"),
+                                 max_tokens=32, dtype=dtype, device="cpu",
+                                 min_seq_bucket=8)
+    np.testing.assert_array_equal(got, np.stack(one.embed_batch(qs)))
+
+
+@pytest.mark.parametrize("n,fanout", [(1, 1), (2, 2), (3, 2), (6, 4), (8, 8)])
+def test_pool_clamps_to_a_power_of_two_and_floors_the_batch(bge_smoke, n,
+                                                            fanout):
+    """The reference's ``_serve_devices``: the largest power of two of the
+    pool; batch buckets floored at the fan-out, so a batch of 3 pads to it
+    and every device gets rows (the staging ring counts it once)."""
+    from repro_torch.core.sharded_backend import _serve_devices
+
+    assert len(_serve_devices(["cpu"] * n)) == fanout
+    cfg, params = bge_smoke
+    be = ShardedEmbedderBackend(cfg, params, 32, dtype="fp32",
+                                devices=["cpu"] * n, min_batch_bucket=1)
+    assert be.device_count == fanout and be.min_batch_bucket == fanout
+    assert all(c >= fanout and c % fanout == 0 for c in be._batch_plan(3))
+    assert all(b >= fanout for b, _ in be.warm_grid(8))
+    fetch = be.embed_batch_async(queries([10, 4, 7], vocab=cfg.vocab_size))
+    # one staging a chunk, whatever the fan-out
+    assert sum(be._staging_pending.values()) == len(be._batch_plan(3))
+    assert len(fetch()) == 3 and not be._staging_pending
+    with pytest.raises(ValueError, match="at least one"):
+        _serve_devices([])
+
+
+def test_prewarm_runs_every_device_once_per_bucket(bge_smoke):
+    cfg, params = bge_smoke
+    be = ShardedEmbedderBackend(cfg, params, 32, dtype="fp32",
+                                devices=["cpu"] * 4)
+    calls = []
+    embed = be._embedder.embed
+
+    def spy(p, *a, **kw):
+        calls.append(a[1].shape)        # this position's tokens
+        return embed(p, *a, **kw)
+
+    be._embedder = type("E", (), {"embed": staticmethod(spy)})
+    grid = be.warm_grid(max_batch=8)
+    assert be.prewarm(grid) == len(grid) == be.traces
+    assert len(calls) == 4 * len(grid)
+    assert sorted(set(calls)) == sorted({(b // 4, s) for b, s in grid})
