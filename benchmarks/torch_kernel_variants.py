@@ -136,9 +136,13 @@ SETS = {
 # lanes a channel the tree's scan is also timed under, beside the router's
 # own choice (ssm_scan.ops.scan_lanes)
 SSM_LANES = (2, 8)
-# the parent's entry point, before the scan took its lanes
+# the parent's entry points: the scan before it took its lanes, attention
+# before its optional lse output
 PARENT_SIGNATURES = {"windve_ssm_scan": [ctypes.c_void_p] * 7
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                     "windve_flash_attention": [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 7 + [ctypes.c_int64] * 12
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
 
 def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
@@ -182,6 +186,7 @@ def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
                            for ln in text.splitlines() if "Used " in ln})
             print(json.dumps({"variant": name, "registers": regs}),
                   flush=True)
+            lib.from_parent = variants[name][2]
             libs[name] = lib
     return libs
 
@@ -319,7 +324,8 @@ def attention_fp32_shapes(libs: dict) -> None:
             libs,
             lambda lib: lib.windve_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
-                out.data_ptr(), 0, B, H, KV, S, S, hd, *q.stride()[:3],
+                out.data_ptr(), *(() if lib.from_parent else (None,)), 0, B,
+                H, KV, S, S, hd, *q.stride()[:3],
                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                 int(causal), win, stream),
             lambda: ((out - want).abs().max().item() <= 1e-4

@@ -39,7 +39,17 @@ non-zero:
            G 8 x hd 128, 80 slots) and its sequence-sharded read: 4
            shards of 1024 slots, each read with its log-sum-exp (`lse`),
            then the combine, against the reference's shard_map formula
-           (in bf16 q over an fp32 cache and in fp32).
+           (in bf16 q over an fp32 cache and in fp32).  The two backward
+           kernels, bf16 and fp32, against their plain backward versions
+           (fp32: max-abs within 1e-4 of each gradient's largest magnitude;
+           bf16: cosine >= 0.999), with autograd's backward of
+           scaled_dot_product_attention and of F.rms_norm as yardsticks:
+           attention at stablelm-1.6b's training shape (B 8, 32 heads of
+           64, S 512, causal), GQA (64 heads on 8 of 128, S 1024), a
+           1024-token sequence under a 256 window, a ragged kv_len with a
+           row of none, and whisper's 64 queries over 1500 frames, each
+           with the forward kernel's lse against the plain version's;
+           RMSNorm over 4096 rows of d 2048 and 6144.
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
            vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
@@ -122,6 +132,22 @@ non-zero:
            are zeroed just before the fanned-out and the sharded runs and
            read just after; one flash_decode launch a shard a layer a
            step.  No speed across cards is claimed.
+  train    stablelm-1.6b at its published width and depth (24 layers, d
+           2048, 32 heads, d_ff 5632, vocab 100352: 1.644 B params, fp32
+           weights, gradients and AdamW moments, 26.3 GB) through
+           steps/train.py's build_train_step at B 8 x S 512, every layer
+           rematerialised: (a) one step's loss and gradients through the
+           kernels against the plain versions in fp32 compute (loss within
+           1e-5 relative, every gradient leaf at cosine >= 0.9999); (b) 20
+           steps in bf16 compute at lr 3e-4 on the zipf TokenStream, launch
+           counts zeroed just before and read just after (per step: 2 x 24
+           flash_attention, 24 flash_attention_bwd, 97 rmsnorm, 49
+           rmsnorm_bwd); the mean loss of the last 5 below the first 5's;
+           ms a step by CUDA events, tokens/s, 6 N tokens over the step
+           time at the bf16 peak, peak memory; then one traced step's five
+           largest device operations; (c) launch/train.py at the smoke
+           config: 3 steps, a checkpoint and 3 resumed steps against 6
+           straight ones (losses within 1e-5, params within 1e-6).
   profile  (only when named) one bge forward at B=16 x S=96 under each
            policy, and one prefill (B=16 x S=64) and decode step of each
            of the eight decoders:
@@ -152,7 +178,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("build", "kernels", "golden", "serve", "offload", "chaos",
-          "generate", "encdec", "mesh")
+          "generate", "encdec", "mesh", "train")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # fp32 outside the tensor cores
@@ -174,6 +200,9 @@ FD_SOURCE = "src/repro_torch/csrc/flash_decode.cu"
 SS_SOURCE = "src/repro_torch/csrc/ssm_scan.cu"
 RN_REPLACES = "src/repro/kernels/rmsnorm/rmsnorm.py:35"
 FD_REPLACES = "src/repro/kernels/flash_decode/flash_decode.py:88"
+# the backward kernels replace no TPU kernel (the reference trains through
+# its jnp attention and norm); each row names the forward it differentiates
+FAB_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 SS_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:74"
 # the main path's attention and epilogue shapes: bge-large-zh-v1.5 at
 # batch 16 and the 96-token window
@@ -238,6 +267,12 @@ CHAOS_WAVES, CHAOS_WAVE, CHAOS_FAIL, CHAOS_CORRUPT = 4, 8, {1}, {3}
 MESH_POSITIONS = 4
 MESH_ARCH, MESH_B, MESH_CACHE, MESH_PROMPTS, MESH_NEW = (
     "qwen2-72b", 4, 256, (200, 40), 16)
+# the train phase: stablelm-1.6b, the reference's default training model,
+# at its published width and depth (1.644 B params), B 8 x S 512, bf16
+# compute, AdamW at lr 3e-4 for TRAIN_STEPS steps on the zipf TokenStream
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = (
+    "stablelm-1.6b", 8, 512, 20, 3e-4)
+TRAIN_LOSS_REL, TRAIN_GRAD_COSINE = 1e-5, 0.9999
 
 
 def emit(obj) -> None:
@@ -623,6 +658,145 @@ def rmsnorm_case(dev, R, D, dt) -> dict:
     return out
 
 
+def _grad_held(got, want, dt) -> tuple:
+    """(ok, measure) of one gradient against its plain version: fp32
+    max-abs within 1e-4 of its largest magnitude (measure: max-abs over
+    that magnitude), bf16 cosine at least 0.999 (measure: the cosine)."""
+    import torch
+
+    g, w = got.float().flatten(), want.float().flatten()
+    if not bool(torch.isfinite(g).all().item()):
+        return False, float("nan")
+    if dt == torch.float32:
+        err, mag = _rel_err(g, w)
+        return err <= 1e-4 * max(mag, 1e-30), err / max(mag, 1e-30)
+    if w.abs().max().item() == 0:
+        return g.abs().max().item() == 0, 1.0
+    cos = torch.nn.functional.cosine_similarity(g, w, dim=0).item()
+    return cos >= 0.999, cos
+
+
+def attention_bwd_case(dev, B, H, KV, Sq, Sk, hd, dt, kv_len, *,
+                       causal=False, window=0) -> dict:
+    """The backward kernel against ``attention_bwd_ref`` on the same q, k,
+    v, output, output gradient and lse, and the forward kernel's lse
+    against the plain version's."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ops import _forward
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    q, k, v, kvl = _attn_inputs(dev, B, H, KV, Sq, Sk, hd, dt, kv_len)
+    rng = np.random.default_rng(9)
+    do = torch.from_numpy(rng.standard_normal((B, Sq, H, hd), np.float32)
+                          ).to(dev, dt).transpose(1, 2)
+    kw = dict(causal=causal, window=window, kv_len=kvl)
+    out, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    lse = lse.float().contiguous()
+    got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    want = attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    held = [_grad_held(g, w, dt) for g, w in zip(got, want)]
+    if dev.type == "cuda":
+        _, klse = _forward(q, k, v, causal, window, kvl, True)
+    else:                      # the rehearsal: the plain version's lse
+        klse = attention_ref(q, k, v, return_lse=True, **kw)[1].float()
+    none = lse == -1e30
+    lse_err = ((klse[~none] - lse[~none]).abs().max().item()
+               if bool((~none).any().item()) else 0.0)
+    lse_ok = bool((klse[none] == -1e30).all().item()) and lse_err <= 1e-4
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out_d = {"B": B, "H": H, "KV": KV, "S": Sq, "Sk": Sk, "hd": hd,
+             "dtype": dtype_name(dt), "causal": causal, "window": window,
+             "kv_len": list(kv_len),
+             "held": ("max_abs_over_max" if dt == torch.float32
+                      else "cosine"),
+             "dq": held[0][1], "dk": held[1][1], "dv": held[2][1],
+             "max_abs_err": max(_rel_err(g, w)[0] for g, w in zip(got, want)),
+             "lse_max_abs_err": lse_err, "lse_ok": lse_ok,
+             "ok": all(ok for ok, _ in held) and lse_ok}
+    # reads q, o, dO, k, v and lse once, writes dq, dk and dv once; the
+    # products the gradients need: q k^T, dO v^T, dV, dK and dQ, 2 hd
+    # flops each a valid (query, key) pair a head
+    esize = q.element_size()
+    mask = attention_mask(B, Sq, Sk, causal=causal, window=window,
+                          kv_len=kvl, device=dev)
+    nbytes = ((4 * B * H * Sq + 4 * B * KV * Sk) * hd * esize
+              + 4 * B * H * Sq + 4 * B)
+    flops = 10 * hd * H * int(mask.sum().item())
+    # on the same basis as the forward's: fp32 on the bf16 tensor cores as
+    # six products of its exact three-term split.  This kernel runs on the
+    # CUDA cores in fp32 for both dtypes; that rate's bound is given beside
+    out_d["bound_ms"], out_d["bound_by"] = bound(
+        nbytes, 6 * flops if dt == torch.float32 else flops, "bfloat16")
+    out_d["bound_cuda_core_ms"] = bound(nbytes, flops, "float32")[0]
+    reps = dict(reps=5, inner=3)
+    out_d["kernel_ms"] = time_ms(
+        lambda: flash_attention_bwd(q, k, v, out, do, lse, **kw), dev, **reps)
+    out_d["plain_ms"] = time_ms(
+        lambda: attention_bwd_ref(q, k, v, out, do, lse, **kw), dev, **reps)
+    # yardstick: autograd's backward of scaled_dot_product_attention
+    try:
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_kw = {"enable_gqa": True} if H != KV else {}
+        lo = F.scaled_dot_product_attention(ql, kl, vl,
+                                            attn_mask=mask[:, None],
+                                            **lib_kw)
+        out_d["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                        retain_graph=True), dev, **reps)
+    except (TypeError, RuntimeError) as e:
+        out_d["library_ms"], out_d["library_error"] = None, repr(e)[:200]
+    return out_d
+
+
+def rmsnorm_bwd_case(dev, R, D, dt) -> dict:
+    """The RMSNorm backward kernel against ``rmsnorm_bwd_ref``: dx and the
+    scale's gradient (summed over the R rows)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_ref
+
+    rng = np.random.default_rng(6)
+    x, dy = (torch.from_numpy(rng.standard_normal((R, D), np.float32) * 2)
+             .to(dev, dt) for _ in range(2))
+    scale = torch.from_numpy(1 + 0.1 * rng.standard_normal(D)
+                             .astype(np.float32)).to(dev)
+    got = rmsnorm_bwd(x, scale, dy, 1e-5)
+    want = rmsnorm_bwd_ref(x, scale, dy, 1e-5)
+    held = [_grad_held(g, w, dt) for g, w in zip(got, want)]
+    out = {"R": R, "D": D, "dtype": dtype_name(dt),
+           "held": "max_abs_over_max" if dt == torch.float32 else "cosine",
+           "dx": held[0][1], "dscale": held[1][1],
+           "max_abs_err": max(_rel_err(g, w)[0] for g, w in zip(got, want)),
+           "ok": all(ok for ok, _ in held)}
+    # reads x, dy and the scale once, writes dx and dscale once; about 8
+    # flops an element (two sums, dx, the scale's partial)
+    esize = x.element_size()
+    out["bound_ms"], out["bound_by"] = bound(3 * R * D * esize + 8 * D,
+                                             8 * R * D, "float32")
+    out["kernel_ms"] = time_ms(lambda: rmsnorm_bwd(x, scale, dy, 1e-5), dev)
+    out["plain_ms"] = time_ms(lambda: rmsnorm_bwd_ref(x, scale, dy, 1e-5),
+                              dev)
+    try:
+        xl = x.detach().requires_grad_()
+        wl = scale.to(dt).detach().requires_grad_()
+        yl = F.rms_norm(xl, (D,), wl, 1e-5)
+        out["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True),
+            dev)
+    except (AttributeError, RuntimeError) as e:
+        out["library_ms"], out["library_error"] = None, repr(e)[:200]
+    return out
+
+
 def ssm_case(dev, B, S, DI, N, dt, sfu) -> dict:
     """The selective scan from a zero state; y and h are fp32 on both
     sides, so the limit is fp32's for either x dtype.  ``sfu``: the card's
@@ -960,6 +1134,42 @@ def phase_kernels(args, dev) -> dict:
                                     128 if t else 32, MESH_POSITIONS,
                                     1024 if t else 16, qdt, f32)
               for qdt in (bf16, f32)]
+    # the backward kernels: stablelm-1.6b's training attention (B 8 x S
+    # 512, 32 heads of 64, causal), GQA (64 on 8 KV heads of 128, S 1024),
+    # a window, a ragged kv_len with a row of none, whisper's cross
+    # attention (64 queries over 1500 frames); RMSNorm at stablelm's
+    # training rows (d 2048) and internlm2's d 6144 (on the CPU: smoke
+    # sizes)
+    bwd_shapes = ((("stablelm_train", TRAIN_B, 32, 32, TRAIN_S, TRAIN_S, 64,
+                    True, 0, None),
+                   ("gqa_H64_KV8_hd128_S1024", 2, 64, 8, 1024, 1024, 128,
+                    True, 0, None),
+                   ("window_256", 4, 16, 4, 1024, 1024, 64, True, 256, None),
+                   ("ragged_kv_len0", 4, 16, 16, 256, 256, 64, False, 0,
+                    [256, 131, 0, 7]),
+                   ("whisper_cross_Sq64_Sk1500", LM_B, 6, 6, LM_PROMPT, 1500,
+                    64, False, 0, None)) if t else
+                  (("stablelm_train", 2, 4, 4, 32, 32, 32, True, 0, None),
+                   ("gqa_H64_KV8_hd128_S1024", 1, 8, 2, 40, 40, 32, True, 0,
+                    None),
+                   ("window_256", 2, 4, 2, 40, 40, 16, True, 12, None),
+                   ("ragged_kv_len0", 4, 4, 4, 24, 24, 16, False, 0,
+                    [24, 13, 0, 7]),
+                   ("whisper_cross_Sq64_Sk1500", 2, 4, 4, 8, 40, 16, False, 0,
+                    None)))
+    attn_bwd, attn_bwd_cases = [], {}
+    for tag, b, h, kv, sq, sk, d, causal, win, lens in bwd_shapes:
+        for dt in (bf16, f32):
+            attn_bwd.append(attention_bwd_case(
+                dev, b, h, kv, sq, sk, d, dt, lens or [sk] * b,
+                causal=causal, window=win))
+            attn_bwd_cases[f"{tag}_{dtype_name(dt)}"] = attn_bwd[-1]
+    rms_bwd_rows = TRAIN_B * TRAIN_S if t else 64
+    rms_bwd, rms_bwd_cases = [], {}
+    for d in ((2048, 6144) if t else (128, 200)):
+        for dt in (bf16, f32):
+            rms_bwd.append(rmsnorm_bwd_case(dev, rms_bwd_rows, d, dt))
+            rms_bwd_cases[f"d{d}_{dtype_name(dt)}"] = rms_bwd[-1]
     cases = ([("flash_attention", c) for c in attn]
              + [("pool_norm", c) for c in pools]
              + [("quant_matmul", c) for c in qm]
@@ -967,7 +1177,9 @@ def phase_kernels(args, dev) -> dict:
              + [("w8a8_matmul", c) for c in w8]
              + [("rmsnorm", c) for c in rms]
              + [("ssm_scan", c) for c in ssm]
-             + [("flash_decode", c) for c in fd + fd_lse])
+             + [("flash_decode", c) for c in fd + fd_lse]
+             + [("flash_attention_bwd", c) for c in attn_bwd]
+             + [("rmsnorm_bwd", c) for c in rms_bwd])
     for name, c in cases:
         emit({"phase": "kernels", "kernel": name, **c})
     bad = [c for _, c in cases if not c["ok"]]
@@ -986,6 +1198,8 @@ def phase_kernels(args, dev) -> dict:
             "quant_matmul": qm[1], "quantize_rows": qr[0],
             "w8a8_matmul": w8[1], "rmsnorm": rms[1], "ssm_scan": ssm[0],
             "flash_decode": fd[0],
+            # the train path: bf16 compute at stablelm-1.6b's training shape
+            "flash_attention_bwd": attn_bwd[0], "rmsnorm_bwd": rms_bwd[0],
             # the redesigned paths, each at the main paths' shapes
             "cases": {"flash_attention": attn_cases, "pool_norm": pool_cases,
                       "quant_matmul": {
@@ -1023,7 +1237,9 @@ def phase_kernels(args, dev) -> dict:
                           "whisper_served_G1_hd64": fd[14],
                           "qwen2_served_G8_hd128": fd[15],
                           "qwen2_lse_4x1024_q_bf16_cache_f32": fd_lse[0],
-                          "qwen2_lse_4x1024_q_f32_cache_f32": fd_lse[1]}}}
+                          "qwen2_lse_4x1024_q_f32_cache_f32": fd_lse[1]},
+                      "flash_attention_bwd": attn_bwd_cases,
+                      "rmsnorm_bwd": rms_bwd_cases}}
 
 
 def golden_tree():
@@ -2304,6 +2520,185 @@ def phase_mesh(args, dev) -> dict:
             "decode": dec, "launches": counts}
 
 
+def leaf_cosines(a, b) -> dict:
+    """{leaf path: cosine} of two gradient trees, each leaf flattened and
+    taken in float64."""
+    from repro_torch.steps.checkpoint import _flatten
+
+    out = {}
+    for (key, x), (_, y) in zip(_flatten(a), _flatten(b)):
+        x, y = x.double().flatten(), y.double().flatten()
+        den = (x.norm() * y.norm()).item()
+        out[key] = (x @ y).item() / den if den > 0 else (
+            1.0 if x.abs().max().item() == y.abs().max().item() == 0 else 0.0)
+    return out
+
+
+def train_resume(dev) -> dict:
+    """launch/train.py at the smoke config on the card: 6 straight steps
+    against 3 steps, a checkpoint, and 3 steps resumed from it."""
+    import tempfile
+
+    from repro_torch.launch.train import train
+    from repro_torch.steps import optim
+
+    kw = dict(batch=2, seq=32, smoke=True, seed=3, log_every=100,
+              device=str(dev))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        ck = os.path.join(d, "ck.npz")
+        p_full, _, l_full = train(TRAIN_ARCH, steps=6, **kw)
+        train(TRAIN_ARCH, steps=3, ckpt=ck, **kw)
+        ck_bytes = os.path.getsize(ck)
+        p_res, o_res, l_res = train(TRAIN_ARCH, steps=3, resume=ck, **kw)
+    loss_err = max(abs(a - b) for a, b in zip(l_full[3:], l_res))
+    param_err = max((a - b).abs().max().item() for a, b in
+                    zip(optim.tree_leaves(p_full), optim.tree_leaves(p_res)))
+    return {"losses_straight": l_full[3:], "losses_resumed": l_res,
+            "max_loss_diff": loss_err, "max_param_diff": param_err,
+            "checkpoint_bytes": ck_bytes, "step": int(o_res["step"]),
+            "ok": loss_err <= 1e-5 and param_err <= 1e-6
+            and int(o_res["step"]) == 6}
+
+
+def phase_train(args, dev) -> dict:
+    """stablelm-1.6b at its published width and depth (1.644 B params,
+    fp32 weights and AdamW state), B 8 x S 512: (a) one step's loss and
+    gradients through the kernels against the plain versions in fp32
+    compute; (b) TRAIN_STEPS steps in bf16 compute at lr 3e-4 on the zipf
+    TokenStream, launch counts zeroed just before and read just after, the
+    loss falling, step time by CUDA events, peak memory, then one traced
+    step; (c) launch/train.py's checkpoint resume at the smoke config."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.workload import TokenStream, TrainBatchSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import api
+    from repro_torch.steps import optim
+    from repro_torch.steps.train import (build_loss_fn, build_train_step,
+                                         value_and_grad)
+
+    cuda = dev.type == "cuda"
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_B, TRAIN_S
+    if not cuda:
+        cfg, B, S = cfg.smoke(), 2, 32
+    shape = ShapeConfig("train", S, B, "train")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    params = api.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    n_params = sum(p.numel() for p in optim.tree_leaves(params))
+    stream = TokenStream(TrainBatchSpec(B, S, cfg.vocab_size), seed=0)
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "params": n_params, "B": B, "S": S,
+           "card": card_line()}
+
+    # (a) kernels against plain versions, fp32 compute, before the optimizer
+    batch = next(stream)
+    loss32 = build_loss_fn(cfg, shape, compute_dtype=torch.float32)
+    (lk, _), gk = value_and_grad(loss32, params, batch)
+    with plain_kernels():
+        (lp, _), gp = value_and_grad(loss32, params, batch)
+    cos = leaf_cosines(gk, gp)
+    worst = min(cos, key=cos.get)
+    rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    out["fp32_kernels_vs_plain"] = {
+        "loss_kernels": lk.item(), "loss_plain": lp.item(), "loss_rel": rel,
+        "min_grad_cosine": cos[worst], "min_grad_cosine_leaf": worst,
+        "leaves": len(cos)}
+    require(rel <= TRAIN_LOSS_REL, f"fp32 loss kernels vs plain {rel}")
+    require(cos[worst] >= TRAIN_GRAD_COSINE,
+            f"gradient {worst}: cosine {cos[worst]} kernels vs plain")
+    del gk, gp
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the main path: bf16 compute, AdamW, counted
+    opt = optim.init(params)
+    step = build_train_step(cfg, shape,
+                            opt_cfg=optim.AdamWConfig(lr=TRAIN_LR))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    sync()
+    reset_launch_counts()                 # the train path starts here
+    for _ in range(TRAIN_STEPS):
+        b = next(stream)
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        if cuda:
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        else:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    sync()
+    counts = launch_counts()              # ... and ends here
+    out["launches"] = {k: v for k, v in counts.items() if v}
+    L = cfg.num_layers
+    # a step: each layer's attention and two norms forward twice (the
+    # forward, then its recompute in the backward) and backward once, and
+    # the final norm once each way
+    want = {"flash_attention": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm": 2 * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1}
+    if cuda:
+        for name, n in want.items():
+            require(counts[name] == n * TRAIN_STEPS,
+                    f"{name}: {counts[name]} launches, want "
+                    f"{n * TRAIN_STEPS}")
+    first, last = (statistics.mean(losses[:5]), statistics.mean(losses[-5:]))
+    steady = statistics.median(times[2:])
+    tokens = B * S
+    out.update({
+        "losses": losses, "first5_mean_loss": first, "last5_mean_loss": last,
+        "finite": all(math.isfinite(x) for x in losses),
+        "step_ms": times, "step_ms_median": steady,
+        "tokens_per_s": tokens / (steady / 1e3),
+        "share_of_bf16_peak": (6 * n_params * tokens
+                               / (steady / 1e3 * PEAK_FLOPS["bfloat16"])),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if cuda else None),
+        "grad_norm_last": float(m["grad_norm"])})
+    require(out["finite"], "a non-finite loss")
+    require(last < first, f"loss did not fall: first-5 mean {first}, "
+                          f"last-5 mean {last}")
+    # (d) one traced step: the device operations that took most time
+    acts = [torch.profiler.ProfilerActivity.CPU] + (
+        [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
+    b = next(stream)
+    with torch.profiler.profile(activities=acts) as prof:
+        params, opt, m = step(params, opt, b)
+        sync()
+    rows = prof.key_averages()
+    # self time: the device work an entry ran itself, not its callees'
+    attr = ("self_device_time_total"
+            if hasattr(rows[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    top = sorted(rows, key=lambda r: -getattr(r, attr))[:5]
+    out["top_device_ops"] = [{"name": r.key[:80],
+                              "ms": getattr(r, attr) / 1e3,
+                              "calls": r.count} for r in top]
+    del params, opt, m, step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) checkpoint round trip through launch/train.py, smoke config
+    out["resume"] = train_resume(dev)
+    require(out["resume"]["ok"], f"resume differs: {out['resume']}")
+    return out
+
+
 # ----------------------------------------------------------------------------
 
 def card_line() -> str:
@@ -2323,7 +2718,9 @@ KERNELS = (("flash_attention", FA_SOURCE, FA_REPLACES),
            ("w8a8_matmul", QM_SOURCE, W8_REPLACES),
            ("rmsnorm", RN_SOURCE, RN_REPLACES),
            ("ssm_scan", SS_SOURCE, SS_REPLACES),
-           ("flash_decode", FD_SOURCE, FD_REPLACES))
+           ("flash_decode", FD_SOURCE, FD_REPLACES),
+           ("flash_attention_bwd", FAB_SOURCE, FA_REPLACES),
+           ("rmsnorm_bwd", RN_SOURCE, RN_REPLACES))
 
 
 def kernel_summary(main: dict, by_path: dict) -> dict:
@@ -2335,7 +2732,7 @@ def kernel_summary(main: dict, by_path: dict) -> dict:
     # fp32 attention's CUDA-core figure; quantize_rows' traffic yardstick;
     # the sharded decode read's launches alone and its log-sum-exps' error
     extra = ("bound_cuda_core_ms", "yardstick_to_int8_ms", "lse_launches_ms",
-             "lse_max_abs_err")
+             "lse_max_abs_err", "held", "dq", "dk", "dv", "dx", "dscale")
     for name, source, replaces in KERNELS:
         c = main[name]
         per_path = {path: counts.get(name, 0)
@@ -2413,7 +2810,7 @@ def main() -> int:
     if "kernels" in results:
         by_path = {path: results[path]["launches"]
                    for path in ("serve", "offload", "chaos", "generate",
-                                "encdec", "mesh")
+                                "encdec", "mesh", "train")
                    if path in results}
         emit(kernel_summary(results["kernels"], by_path))
     if failed or not set(PHASES) <= set(phases):

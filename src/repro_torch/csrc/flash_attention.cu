@@ -94,6 +94,11 @@
 //     k-step's six products (and each 16-key step's in PV) go to a fresh
 //     fragment instead, which is added to the running sum with fp32 adds.
 //   - The output is written in fp32, 8 bytes a store.
+//
+// lse (optional, fp32 (B, H, Sq), for the backward kernel in
+// flash_attention_bwd.cu): each row's log-sum-exp of its scaled scores,
+// m * scale + log(den) from the running max and denominator the row already
+// holds; -1e30 for a row with no valid key (its output stays zeros).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -304,9 +309,9 @@ template <typename T, int HD, bool VEC>
 __global__ void __launch_bounds__(THREADS, Tile<T, HD>::MIN_BLOCKS)
 flash_attention_tc(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ kv_len,
-                   T* __restrict__ o, int B, int H, int G, int Sq, int Sk,
-                   Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale_log2, int causal, int window) {
+                   T* __restrict__ o, float* __restrict__ lse, int B, int H,
+                   int G, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+                   Strides os, float scale_log2, int causal, int window) {
   using C = Tile<T, HD>;
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int BK = C::BK, PITCH = C::PITCH, PLANE = C::PLANE;
@@ -572,6 +577,12 @@ flash_attention_tc(const T* __restrict__ q, const T* __restrict__ k,
   den1 += __shfl_xor_sync(0xffffffffu, den1, 1);
   den1 += __shfl_xor_sync(0xffffffffu, den1, 2);
   const float d0 = fmaxf(den0, 1e-30f), d1 = fmaxf(den1, 1e-30f);
+  if (lse != nullptr && t == 0) {   // one thread of the quad a row
+    const float scale = scale_log2 / LOG2E;
+    float* lb = lse + ((long long)b * H + h) * Sq;
+    if (qa < Sq) lb[qa] = den0 > 0.f ? fmaf(m0, scale, logf(den0)) : NEG;
+    if (qb < Sq) lb[qb] = den1 > 0.f ? fmaf(m1, scale, logf(den1)) : NEG;
+  }
   T* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
@@ -605,8 +616,8 @@ flash_attention_tc(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, bool VEC>
 cudaError_t launch_as(const void* q, const void* k, const void* v,
-                      const void* kv_len, void* o, int B, int H, int KV,
-                      int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+                      const void* kv_len, void* o, float* lse, int B, int H,
+                      int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
                       Strides os, int causal, int window,
                       cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, HD>();
@@ -622,41 +633,44 @@ cudaError_t launch_as(const void* q, const void* k, const void* v,
                                    smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(kv_len),
-      static_cast<T*>(o), B, H, H / KV, Sq, Sk, qs, ks, vs, os,
+      static_cast<T*>(o), lse, B, H, H / KV, Sq, Sk, qs, ks, vs, os,
       LOG2E / sqrtf(static_cast<float>(HD)), causal, window);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* kv_len, void* o, int B, int H, int KV, int Sq,
-                   int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+                   const void* kv_len, void* o, float* lse, int B, int H,
+                   int KV, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+                   Strides os,
                    int causal, int window, int vec, cudaStream_t stream) {
-  return vec ? launch_as<T, HD, true>(q, k, v, kv_len, o, B, H, KV, Sq, Sk,
-                                      qs, ks, vs, os, causal, window, stream)
-             : launch_as<T, HD, false>(q, k, v, kv_len, o, B, H, KV, Sq, Sk,
-                                       qs, ks, vs, os, causal, window, stream);
+  return vec ? launch_as<T, HD, true>(q, k, v, kv_len, o, lse, B, H, KV, Sq,
+                                      Sk, qs, ks, vs, os, causal, window,
+                                      stream)
+             : launch_as<T, HD, false>(q, k, v, kv_len, o, lse, B, H, KV, Sq,
+                                       Sk, qs, ks, vs, os, causal, window,
+                                       stream);
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        const void* kv_len, void* o, int B, int H, int KV,
-                        int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-                        Strides os, int causal, int window, int vec,
-                        cudaStream_t stream) {
+                        const void* kv_len, void* o, float* lse, int B, int H,
+                        int KV, int Sq, int Sk, Strides qs, Strides ks,
+                        Strides vs, Strides os, int causal, int window,
+                        int vec, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
-                           os, causal, window, vec, stream);
+      return launch<T, 16>(q, k, v, kv_len, o, lse, B, H, KV, Sq, Sk, qs,
+                           ks, vs, os, causal, window, vec, stream);
     case 32:
-      return launch<T, 32>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
-                           os, causal, window, vec, stream);
+      return launch<T, 32>(q, k, v, kv_len, o, lse, B, H, KV, Sq, Sk, qs,
+                           ks, vs, os, causal, window, vec, stream);
     case 64:
-      return launch<T, 64>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
-                           os, causal, window, vec, stream);
+      return launch<T, 64>(q, k, v, kv_len, o, lse, B, H, KV, Sq, Sk, qs,
+                           ks, vs, os, causal, window, vec, stream);
     case 128:
-      return launch<T, 128>(q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks, vs,
-                            os, causal, window, vec, stream);
+      return launch<T, 128>(q, k, v, kv_len, o, lse, B, H, KV, Sq, Sk, qs,
+                            ks, vs, os, causal, window, vec, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -679,11 +693,12 @@ bool aligned16(const void* const* ptrs, const Strides* strides, int n,
 
 // q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o (B, H, Sq, hd), each given by
 // its (batch, head, position) strides in elements with a contiguous head
-// dim; kv_len (B,) int32 on the device.  dtype 0 = float32, 1 = bfloat16.
-// Launches on `stream` and returns the launch's cudaError_t.
+// dim; kv_len (B,) int32 on the device; lse null or fp32 (B, H, Sq)
+// contiguous.  dtype 0 = float32, 1 = bfloat16.  Launches on `stream` and
+// returns the launch's cudaError_t.
 extern "C" int windve_flash_attention(
     const void* q, const void* k, const void* v, const void* kv_len, void* o,
-    int dtype, int B, int H, int KV, int Sq, int Sk, int hd,
+    void* lse, int dtype, int B, int H, int KV, int Sq, int Sk, int hd,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
@@ -697,12 +712,14 @@ extern "C" int windve_flash_attention(
   const void* ptrs[4] = {q, k, v, o};
   const Strides strides[4] = {qs, ks, vs, os};
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs,
+    return dispatch_hd<float>(hd, q, k, v, kv_len, o,
+                              static_cast<float*>(lse), B, H, KV, Sq, Sk, qs,
                               ks, vs, os, causal, window,
                               aligned16(ptrs, strides, 4, 4), st);
   if (dtype == 1)
-    return dispatch_hd<bf16>(hd, q, k, v, kv_len, o, B, H, KV, Sq, Sk, qs, ks,
-                             vs, os, causal, window,
+    return dispatch_hd<bf16>(hd, q, k, v, kv_len, o,
+                             static_cast<float*>(lse), B, H, KV, Sq, Sk, qs,
+                             ks, vs, os, causal, window,
                              aligned16(ptrs, strides, 4, 8), st);
   return cudaErrorInvalidValue;
 }

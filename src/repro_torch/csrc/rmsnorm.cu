@@ -26,6 +26,18 @@
 // fp32 D > 8192 on the vector path) is not held: the group reads it twice,
 // once to sum, once to scale.  The sum of squares runs in another order than
 // the plain version's, so the two differ by fp32 rounding.
+//
+// Backward (windve_rmsnorm_bwd): given dy, the gradient of the output,
+//   dx     = r * (g - x * r^2 * mean(g * x)),  g = dy * scale,
+//   dscale = sum over rows of dy * x * r,
+// with r = rsqrt(mean(x^2) + eps) recomputed from x, all in fp32.  A block
+// of 256 threads takes a run of rows: for each it sums x^2 and g * x (warp
+// shuffles, then the warps' partials in a fixed order), writes dx, and adds
+// the row's dy * x * r into its own fp32 partial of dscale (in shared
+// memory while D floats fit, else in its row of the workspace).  A second
+// kernel sums the blocks' partials column by column in block order.  No
+// atomics: the result does not depend on the schedule.  A simple design:
+// scalar loads, the row read twice (the second time from L1/L2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -270,7 +282,137 @@ cudaError_t dispatch(const void* x, long long ldx, const void* scale,
   return launch<T, false>(xt, ldx, s, o, R, D, eps, st);
 }
 
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_SMEM_FLOATS = 8 * 1024;    // 32 KB of dscale partials
+
+template <typename T>
+__device__ __forceinline__ float to_f32(const T* p) {
+  if constexpr (sizeof(T) == 2) {
+    return __uint_as_float(
+        static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
+        << 16);
+  } else {
+    return *p;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+rmsnorm_bwd_kernel(const T* __restrict__ x, long long ldx,
+                   const float* __restrict__ scale, const T* __restrict__ dy,
+                   long long ldy, T* __restrict__ dx, float* __restrict__ part,
+                   int R, int D, int rows_per_block, float eps) {
+  extern __shared__ float acc_s[];
+  __shared__ float red[2][BWD_THREADS / 32];
+  const bool in_smem = D <= BWD_SMEM_FLOATS;
+  float* acc = in_smem ? acc_s : part + (long long)blockIdx.x * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int c = threadIdx.x; c < D; c += BWD_THREADS) acc[c] = 0.f;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min((long long)R, r0 + rows_per_block);
+  for (long long row = r0; row < r1; ++row) {
+    const T* xr = x + row * ldx;
+    const T* dyr = dy + row * ldy;
+    float ss = 0.f, gx = 0.f;
+    for (int c = threadIdx.x; c < D; c += BWD_THREADS) {
+      const float xv = to_f32(xr + c);
+      ss = fmaf(xv, xv, ss);
+      gx = fmaf(to_f32(dyr + c) * scale[c], xv, gx);
+    }
+    ss = warp_sum(ss);
+    gx = warp_sum(gx);
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = gx;
+    }
+    __syncthreads();
+    ss = gx = 0.f;
+#pragma unroll
+    for (int w = 0; w < BWD_THREADS / 32; ++w) {
+      ss += red[0][w];
+      gx += red[1][w];
+    }
+    __syncthreads();                          // red is free for the next row
+    const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+    const float kx = r * r * r * gx / static_cast<float>(D);
+    T* dxr = dx + row * D;
+    for (int c = threadIdx.x; c < D; c += BWD_THREADS) {
+      const float xv = to_f32(xr + c), dyv = to_f32(dyr + c);
+      const float val = r * dyv * scale[c] - xv * kx;
+      if constexpr (sizeof(T) == 2) {
+        dxr[c] = __float2bfloat16(val);
+      } else {
+        dxr[c] = val;
+      }
+      acc[c] = fmaf(dyv * xv, r, acc[c]);     // each thread its own columns
+    }
+  }
+  if (in_smem) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < D; c += BWD_THREADS)
+      part[(long long)blockIdx.x * D + c] = acc[c];
+  }
+}
+
+// dscale[c] = the blocks' partials of column c, summed in block order
+__global__ void rmsnorm_bwd_dscale(const float* __restrict__ part,
+                                   float* __restrict__ dscale, int P, int D) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  float s = 0.f;
+  for (int p = 0; p < P; ++p) s += part[(long long)p * D + c];
+  dscale[c] = s;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, long long ldx, const void* scale,
+                       const void* dy, long long ldy, void* dx, void* dscale,
+                       void* part, int blocks, int R, int D, float eps,
+                       cudaStream_t st) {
+  const int rows = (R + blocks - 1) / blocks;
+  const size_t smem = D <= BWD_SMEM_FLOATS ? D * sizeof(float) : 0;
+  rmsnorm_bwd_kernel<T><<<blocks, BWD_THREADS, smem, st>>>(
+      static_cast<const T*>(x), ldx, static_cast<const float*>(scale),
+      static_cast<const T*>(dy), ldy, static_cast<T*>(dx),
+      static_cast<float*>(part), R, D, rows, eps);
+  rmsnorm_bwd_dscale<<<(D + 127) / 128, 128, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dscale), blocks,
+      D);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The number of row blocks windve_rmsnorm_bwd uses for R rows: the size of
+// its dscale workspace is that many rows of D floats.
+extern "C" int windve_rmsnorm_bwd_blocks(int R) {
+  int sms = 0;
+  if (windve_sm_count(&sms) != cudaSuccess || sms <= 0) sms = 132;
+  const int blocks = 2 * sms;
+  return R < blocks ? (R > 0 ? R : 1) : blocks;
+}
+
+// x and dy (R, D) with row strides ldx, ldy and unit column stride, dtype
+// 0 = float32, 1 = bfloat16; scale (D,) float32 contiguous; dx (R, D)
+// contiguous, x's type; dscale (D,) float32; part a float32 workspace of
+// windve_rmsnorm_bwd_blocks(R) x D.  Launches on `stream` and returns the
+// launches' cudaError_t.
+extern "C" int windve_rmsnorm_bwd(const void* x, long long ldx,
+                                  const void* scale, const void* dy,
+                                  long long ldy, void* dx, void* dscale,
+                                  void* part, int dtype, int R, int D,
+                                  float eps, void* stream) {
+  if (R <= 0 || D <= 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = windve_rmsnorm_bwd_blocks(R);
+  if (dtype == 0)
+    return launch_bwd<float>(x, ldx, scale, dy, ldy, dx, dscale, part, blocks,
+                             R, D, eps, st);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, ldx, scale, dy, ldy, dx, dscale, part,
+                                     blocks, R, D, eps, st);
+  return cudaErrorInvalidValue;
+}
 
 // x (R, D) with row stride ldx and unit column stride, dtype 0 = float32,
 // 1 = bfloat16; scale (D,) float32 contiguous; out (R, D) contiguous, x's

@@ -9,21 +9,48 @@
 #   flash_decode/    -- one-token attention against a ring-buffer KV cache
 #   ssm_scan/        -- the Mamba-1 selective scan (the LM's prefill)
 # build.py compiles the sources with nvcc on first use and loads them.
+#
+# Backward kernels exist for flash_attention and rmsnorm (their routers go
+# through a torch.autograd.Function under autograd).  Every other router
+# refuses autograd on the card (``refuse_grad``): it raises rather than
+# return an output cut from the graph.  CPU tensors go to the plain
+# versions, which autograd differentiates.
+
+SSM_SCAN_BWD_ITEM = "ROADMAP.md Queue 1 item 9, the ssm_scan backward kernel"
+SERVING_BWD_ITEM = ("ROADMAP.md Queue 1 item 10, backward kernels of the "
+                    "serving kernels")
+
+
+def refuse_grad(what: str, item: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and one of
+    ``tensors`` requires grad: ``what`` has no backward kernel on the card
+    yet (``item`` names the ROADMAP entry for it)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: no backward kernel on the card, so it cannot carry a "
+            f"gradient ({item}); run it under torch.no_grad() or on CPU "
+            f"tensors (the plain version)")
 
 
 def _wrappers() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.pool_norm import pool_norm
     from repro_torch.kernels.quant_matmul import (quant_matmul, quantize_rows,
                                                   w8a8_matmul)
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.ssm_scan import ssm_scan
 
     return {"flash_attention": flash_attention, "pool_norm": pool_norm,
             "quant_matmul": quant_matmul, "quantize_rows": quantize_rows,
             "w8a8_matmul": w8a8_matmul, "rmsnorm": rmsnorm,
-            "flash_decode": flash_decode, "ssm_scan": ssm_scan}
+            "flash_decode": flash_decode, "ssm_scan": ssm_scan,
+            "flash_attention_bwd": flash_attention_bwd,
+            "rmsnorm_bwd": rmsnorm_bwd}
 
 
 def launch_counts() -> dict:

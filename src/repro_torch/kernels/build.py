@@ -38,11 +38,17 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 # C signatures of the entry points in csrc/*.cu (all return cudaError_t)
 SIGNATURES = {
-    "windve_flash_attention": [_P, _P, _P, _P, _P,          # q k v kv_len o
+    "windve_flash_attention": [_P, _P, _P, _P, _P, _P,      # q k v kv_len o lse
                                _I, _I, _I, _I, _I, _I, _I,  # dtype B H KV Sq Sk hd
                                _L, _L, _L, _L, _L, _L,      # q, k strides
                                _L, _L, _L, _L, _L, _L,      # v, o strides
                                _I, _I, _P],                 # causal window stream
+    "windve_flash_attention_bwd": [_P, _P, _P, _P, _P,      # q k v o dout
+                                   _P, _P, _P, _P, _P,      # lse kv_len dq dk dv
+                                   _P,                      # delta workspace
+                                   _I, _I, _I, _I, _I, _I,  # dtype B H KV Sq Sk
+                                   _I, _P,                  # hd strides[24]
+                                   _I, _I, _P],             # causal window stream
     "windve_pool_norm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "windve_quant_matmul": [_P, _L, _P, _P, _P,             # x ldx w8 scale out
                             _I, _I, _I, _I, _P],            # dtype M N K stream
@@ -52,6 +58,10 @@ SIGNATURES = {
                            _I, _I, _I, _I, _P],             # dtype M N K stream
     "windve_rmsnorm": [_P, _L, _P, _P,                      # x ldx scale out
                        _I, _I, _I, ctypes.c_float, _P],     # dtype R D eps stream
+    "windve_rmsnorm_bwd": [_P, _L, _P, _P, _L,              # x ldx scale dy ldy
+                           _P, _P, _P,                      # dx dscale workspace
+                           _I, _I, _I, ctypes.c_float, _P], # dtype R D eps stream
+    "windve_rmsnorm_bwd_blocks": [_I],                      # R
     "windve_ssm_scan": [_P, _P, _P, _P, _P, _P, _P,         # x dt B C A y h
                         _I, _I, _I, _I, _I, _P],            # dtype B S DI lanes stream
     "windve_flash_decode": [_P, _P, _P, _P, _P, _P,         # q k v kpos o lse

@@ -7,7 +7,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import SERVING_BWD_ITEM, build, refuse_grad
 from repro_torch.kernels.flash_decode.ref import (combine_shards,
                                                   decode_attention_ref,
                                                   sharded_decode_ref)
@@ -66,6 +66,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kpos, pos, window=window,
                                     lse=lse)
+    refuse_grad("flash_decode", SERVING_BWD_ITEM, q, k, v)
     _check(q, k, v, kpos, pos)
     B, KV, G, hd = q.shape
     Sc = k.shape[1]

@@ -6,7 +6,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import SERVING_BWD_ITEM, build, refuse_grad
 from repro_torch.kernels.pool_norm.ref import pool_norm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -21,6 +21,7 @@ def pool_norm(h: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"unknown pool mode {pool!r}")
     if h.device.type == "cpu":
         return pool_norm_ref(h, mask, pool)
+    refuse_grad("pool_norm", SERVING_BWD_ITEM, h, mask)
     if h.device.type != "cuda":
         raise ValueError(f"pool_norm: no route for device {h.device}")
     if h.dtype not in _DTYPES:

@@ -16,7 +16,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import SERVING_BWD_ITEM, build, refuse_grad
 from repro_torch.kernels.quant_matmul.ref import (_check_int8,
                                                   quant_matmul_ref,
                                                   quantize_activations,
@@ -84,6 +84,7 @@ def quant_matmul(x: torch.Tensor, w8: torch.Tensor,
     -> (..., N) in x's dtype: ``(x @ w8) * scale`` with fp32 accumulation."""
     if x.device.type == "cpu":
         return quant_matmul_ref(x, w8, scale)
+    refuse_grad("quant_matmul", SERVING_BWD_ITEM, x, scale)
     _check_weight(x, w8, scale, "quant_matmul")
     if x.dtype not in _DTYPES:
         raise TypeError(f"quant_matmul: dtype {x.dtype} not supported "
@@ -111,6 +112,7 @@ def quantize_rows(x: torch.Tensor):
     the same on the card as the plain version."""
     if x.device.type == "cpu":
         return quantize_activations(x)
+    refuse_grad("quantize_rows", SERVING_BWD_ITEM, x)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_rows: no route for device {x.device}")
     if x.dtype not in _DTYPES:
@@ -140,6 +142,7 @@ def w8a8_matmul(x8: torch.Tensor, w8: torch.Tensor, x_scale: torch.Tensor,
     ``x8 @ w8``, then ``(acc * x_scale) * w_scale`` in fp32."""
     if x8.device.type == "cpu":
         return w8a8_matmul_ref(x8, w8, x_scale, w_scale, out_dtype)
+    refuse_grad("w8a8_matmul", SERVING_BWD_ITEM, x_scale, w_scale)
     _check_int8(x8, "activations")
     _check_weight(x8, w8, w_scale, "w8a8_matmul")
     if out_dtype not in _DTYPES:

@@ -1,5 +1,11 @@
 """Router for fused RMSNorm: the CUDA kernel for CUDA tensors, the plain
-PyTorch version for CPU tensors.  No fallback."""
+PyTorch version for CPU tensors.  No fallback.
+
+Under autograd (grad mode on and x or the scale requiring grad) the call
+goes through ``RMSNormFn``: the forward kernel and the backward kernel
+(``rmsnorm_bwd``) on the card, ``rmsnorm_ref`` and ``rmsnorm_bwd_ref`` on
+the CPU.  ``rmsnorm.launches`` counts forward launches and
+``rmsnorm_bwd.launches`` backward ones."""
 from __future__ import annotations
 
 import threading
@@ -7,7 +13,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROWS = 2 ** 31 - 1            # at most a block a row, on grid.x
@@ -20,9 +26,15 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     RMSNorm(x) * scale in x's shape and dtype, computed in fp32.
 
     Rows may be strided (a unit column stride is required); the result is
-    contiguous."""
+    contiguous.  Under autograd the call goes through ``RMSNormFn``."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormFn.apply(x, scale, eps)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
+    return _forward(x, scale, eps)
+
+
+def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: no route for device {x.device}")
     if scale.device != x.device:
@@ -38,12 +50,25 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                          f"{tuple(scale.shape)}")
     if not scale.is_contiguous():
         raise ValueError("rmsnorm: scale must be contiguous")
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x as (R, D) rows with a unit column stride (a view when it can)."""
+    D = x.shape[-1]
     x2 = x.reshape(-1, D)         # a view when the leading dims merge
     R = x2.shape[0]
     if (D > 1 and x2.stride(1) != 1) or (R > 1 and x2.stride(0) < D):
         x2 = x2.contiguous()
     if R > MAX_ROWS:
         raise ValueError(f"rmsnorm: {R} rows, at most {MAX_ROWS}")
+    return x2
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    _check(x, scale)
+    D = x.shape[-1]
+    x2 = _rows(x)
+    R = x2.shape[0]
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     lib = build.load()
     with torch.cuda.device(x.device):
@@ -57,7 +82,61 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5):
+    """(dx, dscale) of ``rmsnorm`` at x and scale given the output's
+    gradient dy: the backward kernel on CUDA tensors (dscale summed over
+    rows in fp32, in a fixed order), ``rmsnorm_bwd_ref`` on CPU ones."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_ref(x, scale, dy, eps)
+    _check(x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
+                         f"must match x {tuple(x.shape)} {x.dtype}")
+    D = x.shape[-1]
+    x2, dy2 = _rows(x), _rows(dy)
+    R = x2.shape[0]
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dscale = torch.zeros((D,), dtype=torch.float32, device=x.device)
+    if R == 0:
+        return dx, dscale
+    lib = build.load()
+    part = torch.empty((lib.windve_rmsnorm_bwd_blocks(R), D),
+                       dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.windve_rmsnorm_bwd(
+            x2.data_ptr(), x2.stride(0) if R > 1 else D, scale.data_ptr(),
+            dy2.data_ptr(), dy2.stride(0) if R > 1 else D, dx.data_ptr(),
+            dscale.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], R, D,
+            float(eps), build.stream_handle(x.device))
+    build.check(lib, err, "rmsnorm_bwd")
+    with _count_lock:
+        rmsnorm_bwd.launches += 1
+    return dx, dscale
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm with a gradient: the forward and backward kernels on the
+    card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return rmsnorm_ref(x, scale, eps)
+        return _forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None
+
+
 rmsnorm.launches = 0
+rmsnorm_bwd.launches = 0
 
 
-__all__ = ["rmsnorm", "rmsnorm_ref"]
+__all__ = ["rmsnorm", "rmsnorm_bwd", "RMSNormFn", "rmsnorm_ref",
+           "rmsnorm_bwd_ref"]

@@ -7,7 +7,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import SSM_SCAN_BWD_ITEM, build, refuse_grad
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -34,6 +34,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     zero state."""
     if x.device.type == "cpu":
         return ssm_scan_ref(x, dt, Bm, Cm, A)
+    refuse_grad("ssm_scan", SSM_SCAN_BWD_ITEM, x, dt, Bm, Cm, A)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: no route for device {x.device}")
     if x.dtype not in _DTYPES:

@@ -38,7 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.embedder import layer_params
-from repro_torch.models.lm import cache_len
+from repro_torch.models.lm import _remat, cache_len, layer_views
 
 Params = Dict[str, Any]
 
@@ -98,8 +98,9 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     positions = _arange(0, frames.shape[1], frames.device)
     h = frames.to(cdt)
     h = h + L.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
-    for i in range(cfg.encoder_layers):
-        bp = layer_params(params["enc_blocks"], i)
+    # unbound layer views: under autograd (``forward``) their gradients
+    # stack into the leaf once (``lm.layer_views``)
+    for bp in layer_views(params["enc_blocks"], cfg.encoder_layers):
         hin = L.apply_norm(bp["norm1"], cfg, h)
         h = h + L.attn_forward(bp["attn"], cfg, hin, positions, causal=False)
         hin = L.apply_norm(bp["norm2"], cfg, h)
@@ -147,24 +148,37 @@ def _dec_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     return h
 
 
+def _dec_layer(bp: Params, cfg: ModelConfig, h: torch.Tensor,
+               positions: torch.Tensor, enc: torch.Tensor,
+               enc_pos: torch.Tensor) -> torch.Tensor:
+    """One decoder layer of the training forward: causal self-attention,
+    cross attention to the encoder's states, the MLP."""
+    hin = L.apply_norm(bp["norm1"], cfg, h)
+    h = h + L.attn_forward(bp["attn"], cfg, hin, positions)
+    hin = L.apply_norm(bp["norm_x"], cfg, h)
+    h = h + L.attn_forward(bp["xattn"], cfg, hin, positions, causal=False,
+                           kv_x=enc, kv_positions=enc_pos)
+    hin = L.apply_norm(bp["norm2"], cfg, h)
+    return h + L.apply_mlp(bp["ffn"], cfg, hin)
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             frames: torch.Tensor, remat: bool = False,
             return_hidden: bool = False, compute_dtype=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Logits of every position (B, S, V) in the compute dtype and the
-    auxiliary loss (0, fp32), or the final hidden states with
-    ``return_hidden``.  ``remat`` (the reference's activation
-    checkpointing) belongs to training, which the port does not have yet
-    (ROADMAP.md Queue 1 item 7): it raises."""
-    if remat:
-        raise NotImplementedError(
-            "remat is a training option; training is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
+    """The training forward: logits of every position (B, S, V) in the
+    compute dtype and the auxiliary loss (0, fp32), or the final hidden
+    states with ``return_hidden``.  ``remat`` runs each decoder layer under
+    ``lm._remat`` (rematerialised in the backward), as the reference
+    checkpoints its decoder's scan body."""
     cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
     enc = encode(params, cfg, frames, cdt)
     h, positions = _dec_embed(params, cfg, tokens, 0, cdt)
-    h = L.apply_norm(params["dec_norm"], cfg,
-                     _dec_layers(params, cfg, h, positions, enc))
+    enc_pos = _arange(0, enc.shape[1], enc.device)
+    step = _remat(_dec_layer) if remat else _dec_layer
+    for bp in layer_views(params["dec_blocks"], cfg.num_layers):
+        h = step(bp, cfg, h, positions, enc, enc_pos)
+    h = L.apply_norm(params["dec_norm"], cfg, h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if return_hidden:
         return h, aux

@@ -14,7 +14,14 @@ card, the plain version on the CPU:
   and over a sequence-sharded cache -> ``flash_decode_sharded`` (the
   kernel on each shard with its log-sum-exp, then the combine);
 - RMSNorm -> ``kernels.rmsnorm``;
-- the Mamba-1 prefill scan -> ``kernels.ssm_scan``.
+- the Mamba-1 prefill scan -> ``kernels.ssm_scan``, and in training
+  (``mamba_forward``) too on the card.
+
+Under autograd the attention and RMSNorm routers carry gradients through
+their backward kernels; the other kernels raise on the card when asked
+for one (``kernels.refuse_grad``).  ``mamba_forward`` on CPU tensors takes
+the reference's scans: one step at a time, or by checkpointed chunks
+(``mamba_scan_chunked``, the ``mamba_chunk`` flag).
 
 A float projection is ``torch.matmul``; an int8 one (a quantized tree,
 ``models.quantize``) goes through ``repro_torch.kernels.quant_matmul``,
@@ -32,11 +39,13 @@ state is fp32.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
@@ -539,6 +548,64 @@ def mamba_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor):
     xc, z, dt, Bm, Cm, A, conv_state = _mamba_core(p, cfg, xz)
     y, h = ssm_scan(xc, dt, Bm, Cm, A)
     return _mamba_out(p, x, y, xc, z), h, conv_state
+
+
+def _scan_steps(h, dts, xcs, bs, cs, A):
+    """The recurrence over the steps of (B, T, ...) inputs from state h:
+    (y (B, T, DI), h)."""
+    ys = []
+    for t in range(dts.shape[1]):
+        dA = torch.exp(dts[:, t][..., None] * A)
+        h = h * dA + (dts[:, t] * xcs[:, t])[..., None] * bs[:, t][:, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cs[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def mamba_scan_chunked(xc, dt, Bm, Cm, A, chunk: int = 16):
+    """Time-chunked selective scan from a zero state: a loop over S/chunk
+    chunks, each run under ``torch.utils.checkpoint``, so the backward
+    keeps only the chunk-boundary states and recomputes inside a chunk (the
+    reference's ``mamba_scan_chunked``; chunk shrinks to a divisor of S).
+    Returns (y (B, S, DI) fp32, h_final (B, DI, N) fp32)."""
+    B, S, DI = xc.shape
+    N = Bm.shape[-1]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+    h = torch.zeros((B, DI, N), dtype=torch.float32, device=xc.device)
+    xf = xc.float()
+    ys = []
+    for c0 in range(0, S, chunk):
+        part = slice(c0, c0 + chunk)
+        y, h = checkpoint(_scan_steps, h, dt[:, part], xf[:, part],
+                          Bm[:, part], Cm[:, part], A, use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def default_mamba_scan(device=None):
+    """The scan ``mamba_forward`` runs on ``device``: on the card the
+    ``ssm_scan`` kernel (which refuses autograd until its backward kernel
+    exists); on the CPU the reference's choice by the ``mamba_chunk`` flag,
+    the chunked scan, or ``ssm_scan``'s plain version, the sequential
+    scan."""
+    if torch.device(device or "cpu").type == "cpu" \
+            and perf_flags.FLAGS.mamba_chunk > 0:
+        return functools.partial(mamba_scan_chunked,
+                                 chunk=perf_flags.FLAGS.mamba_chunk)
+    return ssm_scan
+
+
+def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  scan_fn=None) -> torch.Tensor:
+    """Full-sequence mamba mixer over x (B, S, D), the training path:
+    (y (B, S, D)).  ``scan_fn`` replaces the scan (default:
+    ``default_mamba_scan`` for x's device)."""
+    scan_fn = scan_fn or default_mamba_scan(x.device)
+    xz = x @ p["in_proj"].to(x.dtype)
+    xc, z, dt, Bm, Cm, A, _ = _mamba_core(p, cfg, xz)
+    y, _ = scan_fn(xc, dt, Bm, Cm, A)
+    return _mamba_out(p, x, y, xc, z)
 
 
 def mamba_decode(p: Params, cfg: ModelConfig, x1: torch.Tensor,

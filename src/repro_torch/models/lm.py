@@ -7,6 +7,11 @@ whose stub patch embeddings ``prefill`` takes as ``extra_embed``.
 
 * ``init_lm``     -- seeded params, ``blocks`` leaves stacked on a leading
                      layer dim, as in the reference tree;
+* ``forward``     -- the training path: every position's logits (or the
+                     final-normed hidden states) and the MoE load-balance
+                     loss, each layer optionally rematerialised in the
+                     backward (``torch.utils.checkpoint``); ``head_weights``
+                     is the unembedding the chunked loss multiplies by;
 * ``prefill``     -- the prompt's last-position logits and the decode cache;
 * ``decode_step`` -- one token against the cache.
 
@@ -20,7 +25,8 @@ cache's tensors in place (the reference returns new arrays) and returns the
 cache with ``pos`` advanced.
 
 An MoE block's FFN is ``layers.apply_moe`` in prefill and decode alike,
-its load-balance loss dropped, as in the reference.  The reference's
+its load-balance loss dropped there and summed over the layers in
+``forward``, as in the reference.  The reference's
 ``decode_fori`` flag is an XLA layout of the same computation and is not
 ported.
 
@@ -36,9 +42,11 @@ the port splits.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
@@ -48,8 +56,50 @@ from repro_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
-__all__ = ["init_lm", "init_cache", "prefill", "decode_step", "cache_len",
-           "shard_cache", "unshard_cache", "params_from_numpy"]
+__all__ = ["init_lm", "forward", "head_weights", "init_cache", "prefill",
+           "decode_step", "cache_len", "shard_cache", "unshard_cache",
+           "params_from_numpy"]
+
+# the products "dots" keeps for the backward: the weight matmuls' outputs
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable) -> Callable:
+    """``fn`` rematerialised in the backward under the ``remat_policy``
+    flag: "full" (baseline) keeps only its inputs, "dots" also keeps its
+    matmul outputs (``torch.utils.checkpoint``'s selective policy)."""
+    policy = perf_flags.FLAGS.remat_policy
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {policy!r}: want 'full' or 'dots'")
+
+    def run(*args):
+        if policy == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=lambda: (
+                                  create_selective_checkpoint_contexts(
+                                      _save_dots)))
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
+
+
+def layer_views(blocks: Params, n: int) -> list:
+    """The ``n`` layers' slices of the stacked ``blocks`` tree, each leaf
+    ``unbind`` along the layer dim: under autograd the layers' gradients
+    are stacked into the leaf once, where ``layer_params``' indexing would
+    add a zero-padded copy of the whole leaf for every layer."""
+    if n == 0:
+        return []
+    per_leaf = {k: (layer_views(v, n) if isinstance(v, dict)
+                    else torch.unbind(v, 0))
+                for k, v in blocks.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
@@ -114,6 +164,68 @@ def _mix(cfg: ModelConfig, h, a, m) -> torch.Tensor:
     if cfg.block == "mamba":
         return h + m
     return h + 0.5 * (a + m)             # hybrid: parallel heads, averaged
+
+
+def _block_forward(bp: Params, cfg: ModelConfig, h: torch.Tensor,
+                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer over the full sequence: (h, the MoE load-balance loss, 0
+    for a dense block), the reference's ``_block_forward``."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    hin = L.apply_norm(bp["norm1"], cfg, h)
+    a = m = None
+    if cfg.has_attention:
+        a = L.attn_forward(bp["attn"], cfg, hin, positions)
+    if cfg.has_ssm:
+        m = L.mamba_forward(bp["mamba"], cfg, hin)
+    h = _mix(cfg, h, a, m)
+    if cfg.d_ff:
+        hin = L.apply_norm(bp["norm2"], cfg, h)
+        if cfg.is_moe:
+            y, aux = L.apply_moe(bp["ffn"], cfg, hin)
+        else:
+            y = L.apply_mlp(bp["ffn"], cfg, hin)
+        h = h + y
+    return h, aux
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            extra_embed: Optional[torch.Tensor] = None, remat: bool = False,
+            return_hidden: bool = False, constrain: Callable = lambda x: x,
+            compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward.  tokens: (B, S_text) -> (logits (B, S, V) in
+    the compute dtype, the MoE load-balance loss summed over the layers,
+    fp32).  ``extra_embed`` (B, P, D), a VLM's patch embeddings, is
+    prepended (S = P + S_text).
+
+    ``remat`` runs every layer under ``_remat`` (the ``remat_policy``
+    flag).  ``return_hidden`` returns the final-normed hidden states (B, S,
+    D) instead of the logits (the chunked loss forms logits a chunk at a
+    time).  ``constrain`` is the reference's layout hint for the residual
+    stream, applied after each layer (the identity here, as
+    ``parallel.sharding.hidden_constraint`` returns it).
+    ``compute_dtype``: None is ``layers.COMPUTE_DTYPE``, bf16."""
+    cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
+    h, positions = _embed(params, cfg, tokens, 0, cdt, extra_embed)
+
+    def body(hh, bp):
+        hh, aux = _block_forward(bp, cfg, hh, positions)
+        return constrain(hh), aux
+
+    step = _remat(body) if remat else body
+    auxs = []
+    for bp in layer_views(params["blocks"], cfg.num_layers):
+        h, aux = step(h, bp)
+        auxs.append(aux)
+    aux = (torch.stack(auxs).sum() if auxs
+           else torch.zeros((), dtype=torch.float32, device=h.device))
+    if return_hidden:
+        return L.apply_norm(params["final_norm"], cfg, h), aux
+    return _unembed(params, cfg, h), aux
+
+
+def head_weights(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The unembedding (D, V): the embedding's transpose when tied."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
 def cache_len(cfg: ModelConfig, seq_len: int) -> int:

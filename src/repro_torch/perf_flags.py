@@ -1,10 +1,11 @@
-"""Serving toggles, set from the command line with ``--opt k=v,...``.
+"""Serving and training toggles, set from the command line with
+``--opt k=v,...``.
 
-The fields the serving path reads, copied from the reference's
-``perf_flags.py``.  ``attn_kernel`` and ``embed_donate`` are left out:
-eager PyTorch has nothing they switch (attention follows the tensor's
-device; static buffers for CUDA graphs are later work).  Defaults are the
-reference's, the paper-faithful baseline.
+The fields the serving and training paths read, copied from the
+reference's ``perf_flags.py``.  ``attn_kernel`` and ``embed_donate`` are
+left out: eager PyTorch has nothing they switch (attention follows the
+tensor's device; static buffers for CUDA graphs are later work).  Defaults
+are the reference's, the paper-faithful baseline.
 """
 from __future__ import annotations
 
@@ -14,6 +15,16 @@ from dataclasses import dataclass
 
 @dataclass
 class PerfFlags:
+    # mamba selective scan in training (``layers.mamba_forward``) on CPU
+    # tensors: 0 = the per-timestep scan (baseline); N = an outer loop over
+    # S/N chunks, each chunk checkpointed (``layers.mamba_scan_chunked``), so
+    # the backward keeps only the chunk-boundary states.  On the card the
+    # scan is always the ``ssm_scan`` kernel.
+    mamba_chunk: int = 0
+    # train remat policy: "full" (baseline: save only layer inputs) or
+    # "dots" (save the matmul outputs; recompute only the cheap
+    # elementwise/attention math).
+    remat_policy: str = "full"
     # embedding serving precision: "fp32" (fp32-resident weights, fp32
     # trunk -- the precision oracle), "bf16" (weights cast ONCE at load,
     # all matmuls bf16), "int8" (projection weights quantized ONCE at load

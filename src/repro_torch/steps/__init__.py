@@ -1,1 +1,2 @@
-# Step builders of the port: serving (prefill, decode).
+# Step builders of the port: serving (prefill, decode) and training
+# (the train step, AdamW, checkpoints, input specs).

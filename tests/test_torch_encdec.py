@@ -261,11 +261,20 @@ def test_forward_matches_jax(whisper, dtype):
 
 
 def test_forward_remat_is_refused_until_training_is_ported(whisper):
+    """Training is ported: ``remat=True`` (each decoder layer
+    rematerialised in the backward) runs and gives the same logits as
+    without it, and a gradient through them."""
     _, tc, _, tree = whisper
     frames, toks, _ = inputs(tc)
-    with pytest.raises(NotImplementedError, match="training"):
-        encdec.forward(port_params(tree), tc, torch.from_numpy(toks),
-                       torch.from_numpy(frames), remat=True)
+    params = port_params(tree)
+    args = (params, tc, torch.from_numpy(toks), torch.from_numpy(frames))
+    want, _ = encdec.forward(*args, compute_dtype=torch.float32)
+    head = params["lm_head"].requires_grad_()
+    got, aux = encdec.forward(*args, remat=True, compute_dtype=torch.float32)
+    assert torch.equal(got.detach(), want) and float(aux) == 0.0
+    (grad,) = torch.autograd.grad(got.sum(), head)
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
+    head.requires_grad_(False)
 
 
 # ------------------------------------------------- prefill + decode steps --

@@ -37,7 +37,9 @@ def test_every_module_imports_without_jax_or_repro():
               "configs.granite_moe_3b_a800m", "configs.qwen3_moe_30b_a3b",
               "configs.internvl2_2b", "configs.whisper_tiny",
               "models.encdec", "steps.serve", "launch.mesh",
-              "parallel.sharding", "configs.qwen2_72b"):
+              "parallel.sharding", "configs.qwen2_72b", "steps.train",
+              "steps.optim", "steps.checkpoint", "steps.inputs",
+              "launch.train"):
         assert f"repro_torch.{m}" in mods
     for k in ("rmsnorm", "flash_decode", "ssm_scan"):
         for part in ("ops", "ref"):
@@ -62,7 +64,8 @@ def test_port_examples_load_without_jax_or_repro():
     examples = sorted(os.path.join(ROOT, "examples", f) for f in
                       os.listdir(os.path.join(ROOT, "examples"))
                       if f.startswith("torch_") and f.endswith(".py"))
-    assert len(examples) == 4, examples
+    assert len(examples) == 5, examples
+    assert any(e.endswith("torch_train_lm.py") for e in examples)
     code = ("import importlib.util, sys\n"
             f"for i, path in enumerate({examples!r}):\n"
             "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"

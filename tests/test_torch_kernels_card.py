@@ -8,7 +8,10 @@ and no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_card.py
 
-Without a card every case skips.
+Without a card every case skips.  Besides the forward kernels: the two
+backward kernels (attention and RMSNorm) against their plain backward
+versions, the attention forward's ``lse``, both under autograd, and the
+other routers' refusal of autograd on the card.
 """
 import numpy as np
 import pytest
@@ -1075,3 +1078,178 @@ def test_sequence_sharded_decode_matches_the_whole_cache(arch):
     for key in ("k", "v"):
         err = (sharded[key] - whole[key]).abs().max().item()
         assert err <= 1e-6 * whole[key].abs().max().item(), (key, err)
+
+
+# ------------------------------------------------------------- backward --
+# (B, H, KV, Sq, Sk, hd, causal, window, kv_len): stablelm-1.6b's training
+# attention at a short S, GQA at hd 128 (qwen2-style 8 query heads a KV
+# head), a sliding window, a ragged kv_len with a row of none, Sq != Sk
+# (whisper's cross attention, 64 queries over 1500 keys at a narrow B),
+# odd sizes that end mid-tile, and hd 16 and 32
+ATTN_BWD_CASES = [
+    (2, 32, 32, 128, 128, 64, True, 0, None),
+    (1, 16, 2, 96, 96, 128, True, 0, None),
+    (2, 4, 2, 130, 130, 64, True, 48, [130, 77]),
+    (3, 4, 4, 40, 40, 32, False, 0, [40, 0, 17]),
+    (2, 6, 6, 64, 1500, 64, False, 0, None),
+    (2, 4, 1, 33, 70, 16, True, 20, [70, 5]),
+]
+
+
+def _attn_bwd_inputs(case, dtype, seed=0):
+    B, H, KV, Sq, Sk, hd, causal, window, kv_len = case
+    rng = np.random.default_rng(seed)
+    # (B, S, heads, hd) projections seen as (B, heads, S, hd)
+    q, do = (_on_card(rng.standard_normal((B, Sq, H, hd), np.float32),
+                      dtype).transpose(1, 2) for _ in range(2))
+    k, v = (_on_card(rng.standard_normal((B, Sk, KV, hd), np.float32),
+                     dtype).transpose(1, 2) for _ in range(2))
+    kvl = (None if kv_len is None else
+           torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+    return q, k, v, do, dict(causal=causal, window=window, kv_len=kvl)
+
+
+def _held(got, want, dtype):
+    """fp32: max-abs within 1e-4 of the largest magnitude; bf16: cosine of
+    the flattened tensors at least 0.999."""
+    g, w = got.float().flatten(), want.float().flatten()
+    assert torch.isfinite(g).all()
+    if dtype == "float32":
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * max(w.abs().max().item(), 1e-30), err
+    else:
+        cos = torch.nn.functional.cosine_similarity(g, w, dim=0).item()
+        assert cos >= 0.999 or (w.abs().max() == 0 and g.abs().max() == 0), cos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_BWD_CASES, ids=_ids(
+    ATTN_BWD_CASES, lambda B, H, KV, Sq, Sk, hd, c, w, _:
+    f"B{B}H{H}KV{KV}Sq{Sq}Sk{Sk}hd{hd}{'c' if c else ''}w{w}"))
+def test_attention_backward_kernel_matches_plain(case, dtype):
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bwd)
+
+    q, k, v, do, kw = _attn_bwd_inputs(case, dtype)
+    out, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    lse = lse.float().contiguous()
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        _held(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_BWD_CASES, ids=_ids(
+    ATTN_BWD_CASES, lambda B, H, KV, Sq, Sk, hd, c, w, _:
+    f"B{B}H{H}KV{KV}Sq{Sq}Sk{Sk}hd{hd}{'c' if c else ''}w{w}"))
+def test_attention_forward_lse_matches_plain(case, dtype):
+    from repro_torch.kernels.flash_attention.ops import _forward
+
+    q, k, v, _, kw = _attn_bwd_inputs(case, dtype, seed=1)
+    before = flash_attention.launches
+    out, lse = _forward(q, k, v, kw["causal"], kw["window"], kw["kv_len"],
+                        True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want_out, want = attention_ref(q, k, v, return_lse=True, **kw)
+    none = want == -1e30
+    assert (lse[none] == -1e30).all()
+    torch.testing.assert_close(lse[~none], want[~none].float(), rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_autograd_runs_both_kernels(dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, do, kw = _attn_bwd_inputs(ATTN_BWD_CASES[2], dtype, seed=2)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    before = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(qg, kg, vg, **kw)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    q2, k2, v2 = (t.detach().float().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(attention_ref(q2, k2, v2, **kw), (q2, k2, v2),
+                               do.float())
+    for g, w in zip(got, want):
+        _held(g, w, dtype)
+
+
+# (R, D): stablelm-1.6b's training rows (B 8 x S 512 at d 2048),
+# internlm2's d 6144, odd sizes, and a D past the shared-memory partials
+RMS_BWD_CASES = [(4096, 2048), (64, 6144), (7, 77), (3, 20000), (1, 2048)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RMS_BWD_CASES, ids=_ids(
+    RMS_BWD_CASES, lambda R, D: f"R{R}D{D}"))
+def test_rmsnorm_backward_kernel_matches_plain(case, dtype):
+    from repro_torch.kernels.rmsnorm import (RMSNormFn, rmsnorm_bwd,
+                                             rmsnorm_bwd_ref)
+
+    R, D = case
+    rng = np.random.default_rng(3)
+    x, dy = (_on_card(rng.standard_normal((R, D), np.float32) * 2, dtype)
+             for _ in range(2))
+    scale = _on_card(1 + 0.1 * rng.standard_normal(D).astype(np.float32),
+                     "float32")
+    before = rmsnorm_bwd.launches
+    got = rmsnorm_bwd(x, scale, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert rmsnorm_bwd.launches == before + 1
+    want = rmsnorm_bwd_ref(x, scale, dy, 1e-5)
+    assert got[0].dtype == x.dtype and got[1].dtype == torch.float32
+    for g, w in zip(got, want):
+        _held(g, w, dtype)
+    # under autograd: both kernels, the gradients the backward kernel gives
+    xg, sg = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    fwd = rmsnorm.launches
+    grads = torch.autograd.grad(rmsnorm(xg, sg, 1e-5), (xg, sg), dy)
+    assert rmsnorm.launches == fwd + 1
+    for g, w in zip(grads, got):
+        assert torch.equal(g, w)
+    assert RMSNormFn is not None
+
+
+def test_routers_without_a_backward_refuse_autograd():
+    """Every router with no backward kernel raises on the card when asked
+    for a gradient, instead of returning an output cut from the graph; under
+    no_grad it runs."""
+    dev = "cuda"
+    x = torch.randn(4, 8, 32, device=dev, requires_grad=True)
+    dt = torch.rand(4, 8, 32, device=dev)
+    Bm = torch.randn(4, 8, 16, device=dev)
+    A = -torch.rand(32, 16, device=dev)
+    q = torch.randn(2, 2, 1, 32, device=dev, requires_grad=True)
+    kc = torch.randn(2, 8, 2, 32, device=dev)
+    kpos = torch.arange(8, dtype=torch.int32, device=dev)
+    h = torch.randn(2, 5, 64, device=dev, requires_grad=True)
+    m = torch.ones(2, 5, device=dev)
+    xm = torch.randn(6, 64, device=dev, requires_grad=True)
+    w8 = torch.randint(-127, 128, (64, 32), dtype=torch.int8, device=dev)
+    ws = torch.rand(32, device=dev, requires_grad=True)
+    x8 = torch.randint(-127, 128, (6, 64), dtype=torch.int8, device=dev)
+    xs = torch.rand(6, device=dev)
+    calls = {
+        "ssm_scan": lambda: ssm_scan(x, dt, Bm, Bm, A),
+        "flash_decode": lambda: flash_decode(q, kc, kc, kpos, 7),
+        "pool_norm": lambda: pool_norm(h, m, "mean"),
+        "quant_matmul": lambda: quant_matmul(xm, w8, ws),
+        "quantize_rows": lambda: quantize_rows(xm),
+        "w8a8_matmul": lambda: w8a8_matmul(x8, w8, xs, ws),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match=name):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
