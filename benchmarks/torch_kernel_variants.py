@@ -7,6 +7,8 @@ card, each held against the kernel's plain PyTorch version.
     python3 benchmarks/torch_kernel_variants.py --set attention_fp32 --parent DIR
     python3 benchmarks/torch_kernel_variants.py --set ssm_scan --parent DIR
     python3 benchmarks/torch_kernel_variants.py --set quantize_rows --parent DIR
+    python3 benchmarks/torch_kernel_variants.py --set attention_bwd --parent DIR
+    python3 benchmarks/torch_kernel_variants.py --set rmsnorm_bwd --parent DIR
 
 A variant is a source file under ``src/repro_torch/csrc`` (this tree's, or
 the parent tree's unpacked at ``--parent``) with literal substitutions
@@ -19,10 +21,13 @@ variants run in turns (in order, then in reverse), each time the median of
 ``chip_smoke.py`` times kernels.  One JSON line a shape: each variant's two
 times in ms and whether it matched the plain version (bit for bit for
 w8a8_matmul; within rmsnorm's limits, 1e-4 / 2e-2 of the largest output in
-fp32 / bf16; fp32 attention within 1e-4 with zero rows where kv_len is 0;
+fp32 / bf16; attention within 1e-4 (fp32) or 2e-2 (bf16) with zero rows
+where kv_len is 0;
 the scan's y and h within 1e-4 of their largest magnitudes; quantize_rows
 bit for bit, with ``x.to(torch.int8)`` timed beside it as a yardstick for
-the same bytes).  Needs a card; exits non-zero without one.
+the same bytes; the backward kernels' gradients within 1e-4 of their
+largest magnitudes in fp32 and at cosine 0.999 in bf16).  Needs a card;
+exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 CSRC = os.path.join("src", "repro_torch", "csrc")
 QM, RN = "quant_matmul.cu", "rmsnorm.cu"
 FA, SS = "flash_attention.cu", "ssm_scan.cu"
+FAB = "flash_attention_bwd.cu"
 
 # name -> (source file, substitutions, from the parent tree)
 SETS = {
@@ -130,19 +136,49 @@ SETS = {
                                  "(long long)sms * (64 * 32 / threads)"
                                  " * per_block")], False),
     },
+    # the attention backward on the tensor cores (the parent's runs on the
+    # CUDA cores)
+    "attention_bwd": {
+        "parent": (FAB, [], True),
+        "tree": (FAB, [], False),
+        # dK/dV read K's and V's fragments from shared memory at every hd
+        "dkdv_kv_from_smem": (FAB, [(
+            "static constexpr bool HOLD_DKDV = !SPLIT && HD <= 64;",
+            "static constexpr bool HOLD_DKDV = false;")], False),
+        # launch bounds of 2 blocks an SM at hd <= 64 (more registers)
+        "2_blocks_an_sm": (FAB, [(
+            ": (HD <= 64 ? 3 : 2);", ": (HD <= 64 ? 2 : 2);")], False),
+        # walked tiles of 32 rows (half the shared memory a stage), or 64,
+        # for every dtype and head dim
+        "walk_32": (FAB, [("static constexpr int BT = SPLIT && HD == 128 ? "
+                           "32 : 64;", "static constexpr int BT = 32;")],
+                    False),
+        "walk_64": (FAB, [("static constexpr int BT = SPLIT && HD == 128 ? "
+                           "32 : 64;", "static constexpr int BT = 64;")],
+                    False),
+    },
+    # the RMSNorm backward in one pass a row (the parent's takes a block's
+    # rows one at a time)
+    "rmsnorm_bwd": {
+        "parent": (RN, [], True),
+        "tree": (RN, [], False),
+        # dscale summed by one thread a column over all the partials
+        "one_thread_a_column": (RN, [
+            ("    for (int p = warp; p < P; p += 8) s += part[(long long)p * D "
+             "+ c];",
+             "    for (int p = 8 * warp; p < P && warp == 0; ++p) "
+             "s += part[(long long)p * D + c];")], False),
+        # up to 8 chunks a thread before a row takes more threads
+        "8_chunks_a_thread": (RN, [(
+            "while (tpr < BWD_THREADS && tpr * 4 < nc) tpr *= 2;",
+            "while (tpr < BWD_THREADS && tpr * 8 < nc) tpr *= 2;")], False),
+    },
 }
 
 
 # lanes a channel the tree's scan is also timed under, beside the router's
 # own choice (ssm_scan.ops.scan_lanes)
 SSM_LANES = (2, 8)
-# the parent's entry points: the scan before it took its lanes, attention
-# before its optional lse output
-PARENT_SIGNATURES = {"windve_ssm_scan": [ctypes.c_void_p] * 7
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-                     "windve_flash_attention": [ctypes.c_void_p] * 5
-                     + [ctypes.c_int] * 7 + [ctypes.c_int64] * 12
-                     + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 
 
 def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
@@ -175,10 +211,7 @@ def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
             if proc.returncode:
                 raise SystemExit(f"nvcc failed on {name}:\n{text[-3000:]}")
             lib = ctypes.CDLL(os.path.abspath(so))
-            sigs = dict(build.SIGNATURES)
-            if variants[name][2]:
-                sigs.update(PARENT_SIGNATURES)
-            for fn, argtypes in sigs.items():
+            for fn, argtypes in build.SIGNATURES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
                     getattr(lib, fn).restype = ctypes.c_int
@@ -186,7 +219,6 @@ def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
                            for ln in text.splitlines() if "Used " in ln})
             print(json.dumps({"variant": name, "registers": regs}),
                   flush=True)
-            lib.from_parent = variants[name][2]
             libs[name] = lib
     return libs
 
@@ -305,33 +337,37 @@ def attention_fp32_shapes(libs: dict) -> None:
     # bge-large-zh-v1.5 at B 16 x S 96 with ragged rows; hymba-1.5b's
     # prefill (causal, window 1024, 25 heads on 5) at 64 tokens and at the
     # 1100-token prompt; (B, S, heads, hd) projections seen as (B, heads,
-    # S, hd), as models.layers passes them
-    for B, H, KV, S, causal, win, kv_len in (
-            (16, 16, 16, 96, False, 0, [96, 75, 0, 48] * 4),
-            (16, 25, 5, 64, True, 1024, [64] * 16),
-            (2, 25, 5, 1100, True, 1024, [1100] * 2)):
+    # S, hd), as models.layers passes them.  bf16 is timed beside fp32.
+    for (B, H, KV, S, causal, win, kv_len), dt in (
+            (shape, dt) for shape in (
+                (16, 16, 16, 96, False, 0, [96, 75, 0, 48] * 4),
+                (16, 25, 5, 64, True, 1024, [64] * 16),
+                (2, 25, 5, 1100, True, 1024, [1100] * 2))
+            for dt in (torch.float32, torch.bfloat16)):
         hd = 64
         rng = np.random.default_rng(0)
         q, k, v = (torch.from_numpy(rng.standard_normal((B, S, n, hd),
                                                         np.float32))
-                   .cuda().transpose(1, 2) for n in (H, KV, KV))
+                   .cuda().to(dt).transpose(1, 2) for n in (H, KV, KV))
         kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
         kw = dict(causal=causal, window=win, kv_len=kvl)
-        want = attention_ref(q, k, v, **kw)
-        out = torch.empty((B, S, H, hd), device="cuda").transpose(1, 2)
+        want = attention_ref(q, k, v, **kw).float()
+        out = torch.empty((B, S, H, hd), dtype=dt,
+                          device="cuda").transpose(1, 2)
         empty = kvl == 0
+        tol = 1e-4 if dt == torch.float32 else 2e-2
         res = in_turns(
             libs,
             lambda lib: lib.windve_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
-                out.data_ptr(), *(() if lib.from_parent else (None,)), 0, B,
+                out.data_ptr(), None, 0 if dt == torch.float32 else 1, B,
                 H, KV, S, S, hd, *q.stride()[:3],
                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                 int(causal), win, stream),
-            lambda: ((out - want).abs().max().item() <= 1e-4
+            lambda: ((out.float() - want).abs().max().item() <= tol
                      and bool((out[empty] == 0).all())))
         print(json.dumps({"kernel": "flash_attention", "B": B, "H": H,
-                          "KV": KV, "S": S, "dtype": "float32", **res}),
+                          "KV": KV, "S": S, "dtype": str(dt), **res}),
               flush=True)
 
 
@@ -367,14 +403,11 @@ def ssm_scan_shapes(libs: dict) -> None:
         args = (x.data_ptr(), dtv.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                 A.data_ptr(), y.data_ptr(), h.data_ptr(), code, B, S, DI)
 
-        def run(lib, lanes=None):
-            if lanes is None:                # the parent's entry point
-                return lambda: lib.windve_ssm_scan(*args, stream)
+        def run(lib, lanes):
             return lambda: lib.windve_ssm_scan(*args, lanes, stream)
 
         lanes = scan_lanes(B, DI, sms)
-        runs = {name: run(lib, None if name == "parent" else lanes)
-                for name, lib in libs.items()}
+        runs = {name: run(lib, lanes) for name, lib in libs.items()}
         for n in SSM_LANES:
             runs[f"tree_lanes{n}"] = run(libs["tree"], n)
 
@@ -428,6 +461,120 @@ def quantize_rows_shapes(libs: dict) -> None:
                           "dtype": str(dt), **res}), flush=True)
 
 
+def attention_bwd_shapes(libs: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref)
+
+    stream = torch.cuda.current_stream().cuda_stream
+    # chip_smoke's five shapes: stablelm-1.6b's training attention, GQA at
+    # hd 128, a 256 window, a ragged kv_len with a row of none, whisper's
+    # cross attention; (B, S, heads, hd) projections seen as (B, heads, S,
+    # hd), as models.layers passes them
+    for tag, B, H, KV, Sq, Sk, hd, causal, win, kv_len, dt in (
+            ("stablelm_train", 8, 32, 32, 512, 512, 64, True, 0, None,
+             torch.bfloat16),
+            ("stablelm_train", 8, 32, 32, 512, 512, 64, True, 0, None,
+             torch.float32),
+            ("gqa_H64_KV8_hd128", 2, 64, 8, 1024, 1024, 128, True, 0, None,
+             torch.bfloat16),
+            ("gqa_H64_KV8_hd128", 2, 64, 8, 1024, 1024, 128, True, 0, None,
+             torch.float32),
+            ("window_256", 4, 16, 4, 1024, 1024, 64, True, 256, None,
+             torch.bfloat16),
+            ("ragged_kv_len0", 4, 16, 16, 256, 256, 64, False, 0,
+             [256, 131, 0, 7], torch.bfloat16),
+            ("whisper_cross", 16, 6, 6, 64, 1500, 64, False, 0, None,
+             torch.bfloat16)):
+        rng = np.random.default_rng(0)
+        q, do = (torch.from_numpy(rng.standard_normal((B, Sq, H, hd),
+                                                      np.float32))
+                 .cuda().to(dt).transpose(1, 2) for _ in range(2))
+        k, v = (torch.from_numpy(rng.standard_normal((B, Sk, KV, hd),
+                                                     np.float32))
+                .cuda().to(dt).transpose(1, 2) for _ in range(2))
+        kvl = torch.tensor(kv_len or [Sk] * B, dtype=torch.int32,
+                           device="cuda")
+        kw = dict(causal=causal, window=win, kv_len=kvl)
+        o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+        lse = lse.float().contiguous()
+        want = attention_bwd_ref(q, k, v, o, do, lse, **kw)
+        grads = [torch.empty((B, S, n, hd), dtype=dt, device="cuda")
+                 .transpose(1, 2) for n, S in ((H, Sq), (KV, Sk), (KV, Sk))]
+        delta = torch.empty((B, H, Sq), device="cuda")
+        strides = (ctypes.c_int64 * 24)(*(
+            st for t in (q, k, v, o, do, *grads) for st in t.stride()[:3]))
+        code = 0 if dt == torch.float32 else 1
+
+        def close():
+            for g, w in zip(grads, want):
+                g, w = g.float().flatten(), w.float().flatten()
+                if dt == torch.float32:
+                    if (g - w).abs().max() > 1e-4 * w.abs().max():
+                        return False
+                elif w.abs().max() > 0 and torch.nn.functional \
+                        .cosine_similarity(g, w, dim=0) < 0.999:
+                    return False
+            return True
+
+        res = in_turns(
+            libs,
+            lambda lib: lib.windve_flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), kvl.data_ptr(),
+                *(g.data_ptr() for g in grads), delta.data_ptr(), code, B, H,
+                KV, Sq, Sk, hd, strides, int(causal), win, stream),
+            close)
+        print(json.dumps({"kernel": "flash_attention_bwd", "shape": tag,
+                          "dtype": str(dt), **res}), flush=True)
+
+
+def rmsnorm_bwd_shapes(libs: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_ref
+
+    rng = np.random.default_rng(6)
+    stream = torch.cuda.current_stream().cuda_stream
+    # stablelm-1.6b's training rows (B 8 x S 512) at its d 2048 and at
+    # internlm2's d 6144
+    for R, D in ((4096, 2048), (4096, 6144)):
+        for dt in (torch.bfloat16, torch.float32):
+            x, dy = (torch.from_numpy(rng.standard_normal((R, D), np.float32)
+                                      * 2).cuda().to(dt) for _ in range(2))
+            sc = torch.from_numpy(1 + 0.1 * rng.standard_normal(D)
+                                  .astype(np.float32)).cuda()
+            want = rmsnorm_bwd_ref(x, sc, dy, 1e-5)
+            dx = torch.empty_like(x)
+            dscale = torch.empty((D,), device="cuda")
+            part = torch.empty((2 * 132 * 4, D), device="cuda")
+            code = 0 if dt == torch.float32 else 1
+
+            def close():
+                for g, w in zip((dx, dscale), want):
+                    g, w = g.float().flatten(), w.float().flatten()
+                    if dt == torch.float32:
+                        if (g - w).abs().max() > 1e-4 * w.abs().max():
+                            return False
+                    elif torch.nn.functional.cosine_similarity(
+                            g, w, dim=0) < 0.999:
+                        return False
+                return True
+
+            res = in_turns(
+                libs,
+                lambda lib: lib.windve_rmsnorm_bwd(
+                    x.data_ptr(), D, sc.data_ptr(), dy.data_ptr(), D,
+                    dx.data_ptr(), dscale.data_ptr(), part.data_ptr(), code,
+                    R, D, 1e-5, stream),
+                close)
+            print(json.dumps({"kernel": "rmsnorm_bwd", "R": R, "D": D,
+                              "dtype": str(dt), **res}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--set", choices=sorted(SETS), required=True)
@@ -446,7 +593,9 @@ def main() -> int:
     {"w8a8": w8a8_shapes, "rmsnorm": rmsnorm_shapes,
      "attention_fp32": attention_fp32_shapes,
      "ssm_scan": ssm_scan_shapes,
-     "quantize_rows": quantize_rows_shapes}[args.set](libs)
+     "quantize_rows": quantize_rows_shapes,
+     "attention_bwd": attention_bwd_shapes,
+     "rmsnorm_bwd": rmsnorm_bwd_shapes}[args.set](libs)
     return 0
 
 

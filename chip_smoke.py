@@ -42,7 +42,8 @@ non-zero:
            (in bf16 q over an fp32 cache and in fp32).  The two backward
            kernels, bf16 and fp32, against their plain backward versions
            (fp32: max-abs within 1e-4 of each gradient's largest magnitude;
-           bf16: cosine >= 0.999), with autograd's backward of
+           bf16: cosine >= 0.999) and bit for bit equal across two calls,
+           with autograd's backward of
            scaled_dot_product_attention and of F.rms_norm as yardsticks:
            attention at stablelm-1.6b's training shape (B 8, 32 heads of
            64, S 512, causal), GQA (64 heads on 8 of 128, S 1024), a
@@ -143,9 +144,11 @@ non-zero:
            counts zeroed just before and read just after (per step: 2 x 24
            flash_attention, 24 flash_attention_bwd, 97 rmsnorm, 49
            rmsnorm_bwd); the mean loss of the last 5 below the first 5's;
-           ms a step by CUDA events, tokens/s, 6 N tokens over the step
-           time at the bf16 peak, peak memory; then one traced step's five
-           largest device operations; (c) launch/train.py at the smoke
+           ms a step by CUDA events, the host's enqueue time a step,
+           tokens/s, 6 N tokens over the step time at the bf16 peak, peak
+           memory; then one traced step's five largest device operations,
+           its wall, device busy time and idle share and its largest
+           kernels; (c) launch/train.py at the smoke
            config: 3 steps, a checkpoint and 3 resumed steps against 6
            straight ones (losses within 1e-5, params within 1e-6).
   profile  (only when named) one bge forward at B=16 x S=96 under each
@@ -317,6 +320,26 @@ def time_ms(fn, dev, reps: int = 15, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def kernel_split(fn, names, calls: int = 3) -> dict:
+    """Device ms a call of ``fn`` spent in each kernel whose name contains
+    one of ``names``: a torch.profiler trace of ``calls`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    attr = ("self_device_time_total"
+            if rows and hasattr(rows[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    return {n: sum(getattr(r, attr) for r in rows if n in r.key)
+            / 1e3 / calls for n in names}
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -699,8 +722,11 @@ def attention_bwd_case(dev, B, H, KV, Sq, Sk, hd, dt, kv_len, *,
     out, lse = attention_ref(q, k, v, return_lse=True, **kw)
     lse = lse.float().contiguous()
     got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = flash_attention_bwd(q, k, v, out, do, lse, **kw)
     want = attention_bwd_ref(q, k, v, out, do, lse, **kw)
     held = [_grad_held(g, w, dt) for g, w in zip(got, want)]
+    # no float atomics: a second call gives the same bits
+    repeat = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
     if dev.type == "cuda":
         _, klse = _forward(q, k, v, causal, window, kvl, True)
     else:                      # the rehearsal: the plain version's lse
@@ -719,7 +745,8 @@ def attention_bwd_case(dev, B, H, KV, Sq, Sk, hd, dt, kv_len, *,
              "dq": held[0][1], "dk": held[1][1], "dv": held[2][1],
              "max_abs_err": max(_rel_err(g, w)[0] for g, w in zip(got, want)),
              "lse_max_abs_err": lse_err, "lse_ok": lse_ok,
-             "ok": all(ok for ok, _ in held) and lse_ok}
+             "bitwise_repeat": repeat,
+             "ok": all(ok for ok, _ in held) and lse_ok and repeat}
     # reads q, o, dO, k, v and lse once, writes dq, dk and dv once; the
     # products the gradients need: q k^T, dO v^T, dV, dK and dQ, 2 hd
     # flops each a valid (query, key) pair a head
@@ -730,14 +757,18 @@ def attention_bwd_case(dev, B, H, KV, Sq, Sk, hd, dt, kv_len, *,
               + 4 * B * H * Sq + 4 * B)
     flops = 10 * hd * H * int(mask.sum().item())
     # on the same basis as the forward's: fp32 on the bf16 tensor cores as
-    # six products of its exact three-term split.  This kernel runs on the
-    # CUDA cores in fp32 for both dtypes; that rate's bound is given beside
+    # six products of its exact three-term split, as the kernel runs it;
+    # the CUDA cores' fp32 rate's bound is given beside
     out_d["bound_ms"], out_d["bound_by"] = bound(
         nbytes, 6 * flops if dt == torch.float32 else flops, "bfloat16")
     out_d["bound_cuda_core_ms"] = bound(nbytes, flops, "float32")[0]
     reps = dict(reps=5, inner=3)
     out_d["kernel_ms"] = time_ms(
         lambda: flash_attention_bwd(q, k, v, out, do, lse, **kw), dev, **reps)
+    if dev.type == "cuda":
+        out_d["split_ms"] = kernel_split(
+            lambda: flash_attention_bwd(q, k, v, out, do, lse, **kw),
+            ("attn_bwd_delta", "attn_bwd<"))
     out_d["plain_ms"] = time_ms(
         lambda: attention_bwd_ref(q, k, v, out, do, lse, **kw), dev, **reps)
     # yardstick: autograd's backward of scaled_dot_product_attention
@@ -770,19 +801,27 @@ def rmsnorm_bwd_case(dev, R, D, dt) -> dict:
     scale = torch.from_numpy(1 + 0.1 * rng.standard_normal(D)
                              .astype(np.float32)).to(dev)
     got = rmsnorm_bwd(x, scale, dy, 1e-5)
+    again = rmsnorm_bwd(x, scale, dy, 1e-5)
     want = rmsnorm_bwd_ref(x, scale, dy, 1e-5)
     held = [_grad_held(g, w, dt) for g, w in zip(got, want)]
+    # no atomics: a second call gives the same bits
+    repeat = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
     out = {"R": R, "D": D, "dtype": dtype_name(dt),
            "held": "max_abs_over_max" if dt == torch.float32 else "cosine",
            "dx": held[0][1], "dscale": held[1][1],
            "max_abs_err": max(_rel_err(g, w)[0] for g, w in zip(got, want)),
-           "ok": all(ok for ok, _ in held)}
+           "bitwise_repeat": repeat,
+           "ok": all(ok for ok, _ in held) and repeat}
     # reads x, dy and the scale once, writes dx and dscale once; about 8
     # flops an element (two sums, dx, the scale's partial)
     esize = x.element_size()
     out["bound_ms"], out["bound_by"] = bound(3 * R * D * esize + 8 * D,
                                              8 * R * D, "float32")
     out["kernel_ms"] = time_ms(lambda: rmsnorm_bwd(x, scale, dy, 1e-5), dev)
+    if dev.type == "cuda":
+        out["split_ms"] = kernel_split(
+            lambda: rmsnorm_bwd(x, scale, dy, 1e-5),
+            ("rmsnorm_bwd_rows", "rmsnorm_bwd_wide", "rmsnorm_bwd_dscale"))
     out["plain_ms"] = time_ms(lambda: rmsnorm_bwd_ref(x, scale, dy, 1e-5),
                               dev)
     try:
@@ -2625,7 +2664,7 @@ def phase_train(args, dev) -> dict:
                             opt_cfg=optim.AdamWConfig(lr=TRAIN_LR))
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, times, enqueue = [], [], []
     sync()
     reset_launch_counts()                 # the train path starts here
     for _ in range(TRAIN_STEPS):
@@ -2635,6 +2674,7 @@ def phase_train(args, dev) -> dict:
             ev[0].record()
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, b)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
         if cuda:
             ev[1].record()
             ev[1].synchronize()
@@ -2663,6 +2703,8 @@ def phase_train(args, dev) -> dict:
         "losses": losses, "first5_mean_loss": first, "last5_mean_loss": last,
         "finite": all(math.isfinite(x) for x in losses),
         "step_ms": times, "step_ms_median": steady,
+        # host time to enqueue a step: above the step time, the host sets it
+        "enqueue_ms_median": statistics.median(enqueue[2:]),
         "tokens_per_s": tokens / (steady / 1e3),
         "share_of_bf16_peak": (6 * n_params * tokens
                                / (steady / 1e3 * PEAK_FLOPS["bfloat16"])),
@@ -2677,8 +2719,28 @@ def phase_train(args, dev) -> dict:
         [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
     b = next(stream)
     with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         params, opt, m = step(params, opt, b)
         sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if cuda:
+        # device busy: the kernels' durations in the trace, over the wall
+        path = os.path.join(ROOT, "build", "profile", "train_step.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            kernels = [e for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        by_name: dict = {}
+        for e in kernels:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        busy_ms = sum(by_name.values()) / 1e3
+        out["traced_step"] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "kernels": len(kernels),
+            "top_kernels": [{"name": n[:80], "ms": d / 1e3}
+                            for n, d in sorted(by_name.items(),
+                                               key=lambda kv: -kv[1])[:6]]}
     rows = prof.key_averages()
     # self time: the device work an entry ran itself, not its callees'
     attr = ("self_device_time_total"

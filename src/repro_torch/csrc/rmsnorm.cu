@@ -30,14 +30,25 @@
 // Backward (windve_rmsnorm_bwd): given dy, the gradient of the output,
 //   dx     = r * (g - x * r^2 * mean(g * x)),  g = dy * scale,
 //   dscale = sum over rows of dy * x * r,
-// with r = rsqrt(mean(x^2) + eps) recomputed from x, all in fp32.  A block
-// of 256 threads takes a run of rows: for each it sums x^2 and g * x (warp
-// shuffles, then the warps' partials in a fixed order), writes dx, and adds
-// the row's dy * x * r into its own fp32 partial of dscale (in shared
-// memory while D floats fit, else in its row of the workspace).  A second
-// kernel sums the blocks' partials column by column in block order.  No
-// atomics: the result does not depend on the schedule.  A simple design:
-// scalar loads, the row read twice (the second time from L1/L2).
+// with r = rsqrt(mean(x^2) + eps) recomputed from x, all in fp32.  What
+// bounds it: memory (it reads x and dy once and writes dx once; eight flops
+// an element).  One pass a row, as the forward: a group of TPR threads (a
+// warp, or up to 256, picked by the host as the forward picks it) takes a
+// row and holds its x and dy in registers as 16-byte chunks, up to CHB a
+// thread; it sums x^2 and g * x by warp shuffles (and, when the group is
+// more than a warp, through shared memory behind the group's own named
+// barrier: no block barrier a row), then writes dx with 16-byte stores.
+// Each thread holds the scale of its columns, loaded once, and its columns'
+// dscale partial in registers across the rows its group takes.  At the end
+// the block's groups add their partials in a fixed order in shared memory,
+// and the block writes its row of the fp32 workspace; a second kernel sums
+// the blocks' rows column by column in a fixed order, 8 warps to 32
+// columns.  No atomics: the result does not depend on the schedule.  Rows
+// whose stride, D or base is not a multiple of 16 bytes take the same code
+// with one element a chunk.  Rows too wide to hold (bf16 D > 16384, fp32 D >
+// 8192 on the vector path) take rmsnorm_bwd_wide: a block of 256 threads a
+// run of rows, the row read twice, the partials in shared memory while D
+// floats fit, else in the workspace.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -285,6 +296,131 @@ cudaError_t dispatch(const void* x, long long ldx, const void* scale,
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_SMEM_FLOATS = 8 * 1024;    // 32 KB of dscale partials
 
+// a barrier of the n threads (a multiple of 32) that use named barrier id
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// Groups of tpr threads (a multiple of 32 that divides the block) take the
+// rows r0 + group, r0 + group + groups, ... of the block's run; a thread
+// holds chunks lt + j * tpr, j < CHB, of each.
+template <typename T, bool VEC, int CHB>
+__global__ void __launch_bounds__(BWD_THREADS, CHB <= 4 ? 2 : 1)
+rmsnorm_bwd_rows(const T* __restrict__ x, long long ldx,
+                 const float* __restrict__ scale, const T* __restrict__ dy,
+                 long long ldy, T* __restrict__ dx, float* __restrict__ part,
+                 int R, int D, int tpr, int rows_per_block, float eps) {
+  using C = Chunk<T, VEC>;
+  constexpr int V = C::V;
+  extern __shared__ float acc_s[];            // D floats when groups > 1
+  __shared__ float red[2][BWD_THREADS / 32][2];
+  const int groups = BWD_THREADS / tpr, group = threadIdx.x / tpr;
+  const int lt = threadIdx.x % tpr, lane = threadIdx.x % 32;
+  const int nc = D / V;                       // chunks a row
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min((long long)R, r0 + rows_per_block);
+
+  float sc[CHB][V], acc[CHB][V];
+#pragma unroll
+  for (int j = 0; j < CHB; ++j) {
+    const int c = lt + j * tpr;
+    if (c < nc) load_scale<V>(scale + c * V, sc[j]);
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[j][e] = 0.f;
+  }
+  int parity = 0;                             // red's slot for this row
+  for (long long row = r0 + group; row < r1; row += groups, parity ^= 1) {
+    const T* xr = x + row * ldx;
+    const T* dyr = dy + row * ldy;
+    C xc[CHB], gc[CHB];
+#pragma unroll
+    for (int j = 0; j < CHB; ++j) {           // every load in flight at once
+      const int c = lt + j * tpr;
+      if (c < nc) {
+        xc[j].load(xr + c * V);
+        gc[j].load(dyr + c * V);
+      }
+    }
+    float ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int j = 0; j < CHB; ++j) {
+      const int c = lt + j * tpr;
+      if (c < nc) {
+        float xf[V], gf[V];
+        xc[j].get(xf);
+        gc[j].get(gf);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          ss = fmaf(xf[e], xf[e], ss);
+          gx = fmaf(gf[e] * sc[j][e], xf[e], gx);
+        }
+      }
+    }
+    ss = warp_sum(ss);
+    gx = warp_sum(gx);
+    if (tpr > 32) {                           // the group's warps, in order
+      const int warp = threadIdx.x / 32, w0 = group * (tpr / 32);
+      if (lane == 0) {
+        red[parity][warp][0] = ss;
+        red[parity][warp][1] = gx;
+      }
+      group_sync(1 + group, tpr);
+      ss = gx = 0.f;
+      for (int w = 0; w < tpr / 32; ++w) {
+        ss += red[parity][w0 + w][0];
+        gx += red[parity][w0 + w][1];
+      }
+    }
+    const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+    const float kx = r * r * r * gx / static_cast<float>(D);
+    T* dxr = dx + row * D;
+#pragma unroll
+    for (int j = 0; j < CHB; ++j) {
+      const int c = lt + j * tpr;
+      if (c < nc) {
+        float xf[V], gf[V], out[V];
+        xc[j].get(xf);
+        gc[j].get(gf);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          out[e] = r * gf[e] * sc[j][e] - xf[e] * kx;
+          acc[j][e] = fmaf(gf[e] * xf[e], r, acc[j][e]);
+        }
+        C::put(dxr + c * V, out);
+      }
+    }
+  }
+  // the block's row of the workspace: one group writes it from registers;
+  // several add theirs in shared memory, group by group
+  float* pb = part + (long long)blockIdx.x * D;
+  if (groups == 1) {
+#pragma unroll
+    for (int j = 0; j < CHB; ++j) {
+      const int c = lt + j * tpr;
+      if (c < nc) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) pb[c * V + e] = acc[j][e];
+      }
+    }
+    return;
+  }
+  for (int gi = 0; gi < groups; ++gi) {
+    if (group == gi) {
+#pragma unroll
+      for (int j = 0; j < CHB; ++j) {
+        const int c = lt + j * tpr;
+        if (c < nc) {
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            acc_s[c * V + e] = gi ? acc_s[c * V + e] + acc[j][e] : acc[j][e];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < D; c += BWD_THREADS) pb[c] = acc_s[c];
+}
+
 template <typename T>
 __device__ __forceinline__ float to_f32(const T* p) {
   if constexpr (sizeof(T) == 2) {
@@ -296,12 +432,16 @@ __device__ __forceinline__ float to_f32(const T* p) {
   }
 }
 
+// Rows too wide to hold: a block of 256 threads takes a run of rows, each
+// summed block-wide, then scaled with the row read again (from L1/L2); the
+// block's dscale partial in shared memory while D floats fit, else in its
+// row of the workspace.
 template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS)
-rmsnorm_bwd_kernel(const T* __restrict__ x, long long ldx,
-                   const float* __restrict__ scale, const T* __restrict__ dy,
-                   long long ldy, T* __restrict__ dx, float* __restrict__ part,
-                   int R, int D, int rows_per_block, float eps) {
+rmsnorm_bwd_wide(const T* __restrict__ x, long long ldx,
+                 const float* __restrict__ scale, const T* __restrict__ dy,
+                 long long ldy, T* __restrict__ dx, float* __restrict__ part,
+                 int R, int D, int rows_per_block, float eps) {
   extern __shared__ float acc_s[];
   __shared__ float red[2][BWD_THREADS / 32];
   const bool in_smem = D <= BWD_SMEM_FLOATS;
@@ -354,14 +494,59 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, long long ldx,
   }
 }
 
-// dscale[c] = the blocks' partials of column c, summed in block order
-__global__ void rmsnorm_bwd_dscale(const float* __restrict__ part,
-                                   float* __restrict__ dscale, int P, int D) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= D) return;
+// dscale[c] = the blocks' partials of column c, summed in a fixed order: a
+// block takes 32 columns, warp w sums partials w, w + 8, w + 16, ... (its
+// loads independent of each other), and the first warp adds the 8 sums in
+// warp order
+__global__ void __launch_bounds__(256)
+rmsnorm_bwd_dscale(const float* __restrict__ part, float* __restrict__ dscale,
+                   int P, int D) {
+  __shared__ float sums[8][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int p = 0; p < P; ++p) s += part[(long long)p * D + c];
-  dscale[c] = s;
+  if (c < D)
+    for (int p = warp; p < P; p += 8) s += part[(long long)p * D + c];
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += sums[w][lane];
+    dscale[c] = t;
+  }
+}
+
+// The one-pass kernel when a row fits CHB chunks a thread (chunks of one
+// element unless VEC); *held = false, and nothing launched, when it does
+// not.
+template <typename T, bool VEC>
+cudaError_t launch_bwd_rows(const T* x, long long ldx, const float* scale,
+                            const T* dy, long long ldy, T* dx, float* part,
+                            int blocks, int R, int D, float eps,
+                            cudaStream_t st, bool* held) {
+  const int nc = D / Chunk<T, VEC>::V;
+  // the fewest threads a row that hold it in 4 chunks each, then (few rows)
+  // more threads a row until every SM has four warps
+  int tpr = 32;                                // a warp
+  while (tpr < BWD_THREADS && tpr * 4 < nc) tpr *= 2;
+  int sms = 0;
+  const cudaError_t err = windve_sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  while (tpr < BWD_THREADS && tpr < nc
+         && static_cast<long long>(R) * tpr < 128LL * sms)
+    tpr *= 2;
+  *held = tpr * 8 >= nc;
+  if (!*held) return cudaSuccess;
+  const int rows = (R + blocks - 1) / blocks;
+  const size_t smem = tpr < BWD_THREADS ? D * sizeof(float) : 0;
+  if (tpr * 4 >= nc)
+    rmsnorm_bwd_rows<T, VEC, 4><<<blocks, BWD_THREADS, smem, st>>>(
+        x, ldx, scale, dy, ldy, dx, part, R, D, tpr, rows, eps);
+  else
+    rmsnorm_bwd_rows<T, VEC, 8><<<blocks, BWD_THREADS, smem, st>>>(
+        x, ldx, scale, dy, ldy, dx, part, R, D, tpr, rows, eps);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -369,15 +554,32 @@ cudaError_t launch_bwd(const void* x, long long ldx, const void* scale,
                        const void* dy, long long ldy, void* dx, void* dscale,
                        void* part, int blocks, int R, int D, float eps,
                        cudaStream_t st) {
-  const int rows = (R + blocks - 1) / blocks;
-  const size_t smem = D <= BWD_SMEM_FLOATS ? D * sizeof(float) : 0;
-  rmsnorm_bwd_kernel<T><<<blocks, BWD_THREADS, smem, st>>>(
-      static_cast<const T*>(x), ldx, static_cast<const float*>(scale),
-      static_cast<const T*>(dy), ldy, static_cast<T*>(dx),
-      static_cast<float*>(part), R, D, rows, eps);
-  rmsnorm_bwd_dscale<<<(D + 127) / 128, 128, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dscale), blocks,
-      D);
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = D % V == 0 && ldx % V == 0 && ldy % V == 0
+                   && reinterpret_cast<uintptr_t>(x) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(dy) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(scale) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  const float* s = static_cast<const float*>(scale);
+  T* dxt = static_cast<T*>(dx);
+  float* pt = static_cast<float*>(part);
+  bool held = false;
+  cudaError_t err =
+      vec ? launch_bwd_rows<T, true>(xt, ldx, s, dyt, ldy, dxt, pt, blocks,
+                                     R, D, eps, st, &held)
+          : launch_bwd_rows<T, false>(xt, ldx, s, dyt, ldy, dxt, pt, blocks,
+                                      R, D, eps, st, &held);
+  if (err != cudaSuccess) return err;
+  if (!held) {
+    const int rows = (R + blocks - 1) / blocks;
+    const size_t smem = D <= BWD_SMEM_FLOATS ? D * sizeof(float) : 0;
+    rmsnorm_bwd_wide<T><<<blocks, BWD_THREADS, smem, st>>>(
+        xt, ldx, s, dyt, ldy, dxt, pt, R, D, rows, eps);
+  }
+  rmsnorm_bwd_dscale<<<(D + 31) / 32, 256, 0, st>>>(
+      pt, static_cast<float*>(dscale), blocks, D);
   return cudaGetLastError();
 }
 

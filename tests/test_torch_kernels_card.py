@@ -10,8 +10,9 @@ and no JAX:
 
 Without a card every case skips.  Besides the forward kernels: the two
 backward kernels (attention and RMSNorm) against their plain backward
-versions, the attention forward's ``lse``, both under autograd, and the
-other routers' refusal of autograd on the card.
+versions, on views that are not 16-byte aligned, and bit for bit across two
+calls; the attention forward's ``lse``, both under autograd, and the other
+routers' refusal of autograd on the card.
 """
 import numpy as np
 import pytest
@@ -1085,7 +1086,8 @@ def test_sequence_sharded_decode_matches_the_whole_cache(arch):
 # attention at a short S, GQA at hd 128 (qwen2-style 8 query heads a KV
 # head), a sliding window, a ragged kv_len with a row of none, Sq != Sk
 # (whisper's cross attention, 64 queries over 1500 keys at a narrow B),
-# odd sizes that end mid-tile, and hd 16 and 32
+# odd sizes that end mid-tile, hd 16 and 32, and hd 128 under a window with
+# a ragged kv_len
 ATTN_BWD_CASES = [
     (2, 32, 32, 128, 128, 64, True, 0, None),
     (1, 16, 2, 96, 96, 128, True, 0, None),
@@ -1093,6 +1095,7 @@ ATTN_BWD_CASES = [
     (3, 4, 4, 40, 40, 32, False, 0, [40, 0, 17]),
     (2, 6, 6, 64, 1500, 64, False, 0, None),
     (2, 4, 1, 33, 70, 16, True, 20, [70, 5]),
+    (2, 8, 2, 200, 200, 128, True, 64, [200, 77]),
 ]
 
 
@@ -1166,6 +1169,47 @@ def test_attention_forward_lse_matches_plain(case, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [ATTN_BWD_CASES[0], ATTN_BWD_CASES[1]],
+                         ids=["causal_mha", "gqa_hd128"])
+def test_attention_backward_is_bitwise_repeatable(case, dtype):
+    """No float atomics: two calls give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, do, kw = _attn_bwd_inputs(case, dtype, seed=4)
+    out, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    lse = lse.float().contiguous()
+    first = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    second = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_backward_takes_unaligned_views(dtype):
+    """q, k, v and dO as views one element past a 16-byte boundary, rows
+    one element longer than hd: the element-copy staging path."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bwd)
+
+    B, H, KV, Sq, Sk, hd, causal, window, kv_len = ATTN_BWD_CASES[2]
+    rng = np.random.default_rng(5)
+    q, do = (_unaligned(rng.standard_normal((B, Sq, H, hd), np.float32),
+                        dtype).transpose(1, 2) for _ in range(2))
+    k, v = (_unaligned(rng.standard_normal((B, Sk, KV, hd), np.float32),
+                       dtype).transpose(1, 2) for _ in range(2))
+    assert q.data_ptr() % 16 and q.stride(2) % 8
+    kw = dict(causal=causal, window=window,
+              kv_len=torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+    out, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    lse = lse.float().contiguous()
+    got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    want = attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    for g, w in zip(got, want):
+        _held(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_autograd_runs_both_kernels(dtype):
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
@@ -1185,8 +1229,10 @@ def test_attention_autograd_runs_both_kernels(dtype):
 
 
 # (R, D): stablelm-1.6b's training rows (B 8 x S 512 at d 2048),
-# internlm2's d 6144, odd sizes, and a D past the shared-memory partials
-RMS_BWD_CASES = [(4096, 2048), (64, 6144), (7, 77), (3, 20000), (1, 2048)]
+# internlm2's d 6144, odd sizes, a D past what registers hold, and rows
+# whose stride is not a multiple of 16 bytes in either dtype
+RMS_BWD_CASES = [(4096, 2048), (64, 6144), (7, 77), (3, 20000), (1, 2048),
+                 (9, 2046)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1218,6 +1264,42 @@ def test_rmsnorm_backward_kernel_matches_plain(case, dtype):
     for g, w in zip(grads, got):
         assert torch.equal(g, w)
     assert RMSNormFn is not None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_backward_is_bitwise_repeatable(dtype):
+    """No atomics: two calls give the same bits, dscale too."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    rng = np.random.default_rng(7)
+    x, dy = (_on_card(rng.standard_normal((4096, 2048), np.float32), dtype)
+             for _ in range(2))
+    scale = _on_card(1 + 0.1 * rng.standard_normal(2048).astype(np.float32),
+                     "float32")
+    first = rmsnorm_bwd(x, scale, dy, 1e-5)
+    second = rmsnorm_bwd(x, scale, dy, 1e-5)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_backward_reads_strided_rows(dtype):
+    """x and dy as row views of (R, D + 1) buffers: their row stride is not
+    a multiple of 16 bytes, so the kernel takes its element path."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_ref
+
+    R, D = 40, 2048
+    rng = np.random.default_rng(8)
+    x, dy = (_on_card(rng.standard_normal((R, D + 1), np.float32) * 2,
+                      dtype)[:, :D] for _ in range(2))
+    assert x.stride(0) == D + 1
+    scale = _on_card(1 + 0.1 * rng.standard_normal(D).astype(np.float32),
+                     "float32")
+    got = rmsnorm_bwd(x, scale, dy, 1e-5)
+    want = rmsnorm_bwd_ref(x, scale, dy, 1e-5)
+    for g, w in zip(got, want):
+        _held(g, w, dtype)
 
 
 def test_routers_without_a_backward_refuse_autograd():
