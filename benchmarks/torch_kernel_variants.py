@@ -6,6 +6,7 @@ card, each held against the kernel's plain PyTorch version.
     python3 benchmarks/torch_kernel_variants.py --set rmsnorm --parent DIR
     python3 benchmarks/torch_kernel_variants.py --set attention_fp32 --parent DIR
     python3 benchmarks/torch_kernel_variants.py --set ssm_scan --parent DIR
+    python3 benchmarks/torch_kernel_variants.py --set ssm_scan_bwd --parent DIR
     python3 benchmarks/torch_kernel_variants.py --set quantize_rows --parent DIR
     python3 benchmarks/torch_kernel_variants.py --set attention_bwd --parent DIR
     python3 benchmarks/torch_kernel_variants.py --set rmsnorm_bwd --parent DIR
@@ -26,7 +27,9 @@ where kv_len is 0;
 the scan's y and h within 1e-4 of their largest magnitudes; quantize_rows
 bit for bit, with ``x.to(torch.int8)`` timed beside it as a yardstick for
 the same bytes; the backward kernels' gradients within 1e-4 of their
-largest magnitudes in fp32 and at cosine 0.999 in bf16).  Needs a card;
+largest magnitudes in fp32 and at cosine 0.999 in bf16; the scan's
+backward gradients within 1e-4 of their largest magnitudes, dx of a bf16 x
+within 2^-7).  Needs a card;
 exits non-zero without one.
 """
 from __future__ import annotations
@@ -104,6 +107,36 @@ SETS = {
         # the accurate expf (range reduction on the FMA pipe) for ex2
         "expf": (SS, [("\n                        * LOG2E\n", "\n"),
                       ("ex2(dtv * a[j])", "expf(dtv * a[j])")], False),
+    },
+    # the scan's backward: a block of BWD_CH channels x 16 states, 2 blocks
+    # an SM
+    "ssm_scan_bwd": {
+        "tree": (SS, [], False),
+        # 16 channels a block (256 threads), 4 or 5 blocks an SM
+        "ch16": (SS, [("constexpr int BWD_CH = 32;",
+                       "constexpr int BWD_CH = 16;"),
+                      ("constexpr int BWD_MIN_BLOCKS = 2;",
+                       "constexpr int BWD_MIN_BLOCKS = 4;")], False),
+        "ch16_5_blocks": (SS, [("constexpr int BWD_CH = 32;",
+                                "constexpr int BWD_CH = 16;"),
+                               ("constexpr int BWD_MIN_BLOCKS = 2;",
+                                "constexpr int BWD_MIN_BLOCKS = 5;")],
+                          False),
+        # 24 channels a block (384 threads), 3 blocks an SM (1152 threads):
+        # hymba's training scan in 3 waves, not 4
+        "ch24": (SS, [("constexpr int BWD_CH = 32;",
+                       "constexpr int BWD_CH = 24;"),
+                      ("constexpr int BWD_MIN_BLOCKS = 2;",
+                       "constexpr int BWD_MIN_BLOCKS = 3;")], False),
+        # the recompute's exps held in registers for the reverse step (one
+        # ex2 a state and step, 16 registers more)
+        "hold_exp": (SS, [
+            ("    float hh[CHUNK + 1];", "    float e[CHUNK], hh[CHUNK + 1];"),
+            ("      hh[t + 1] = fmaf(hh[t], ex2(dtv * a2), dxv * s.B[t][n]);",
+             "      e[t] = ex2(dtv * a2);\n"
+             "      hh[t + 1] = fmaf(hh[t], e[t], dxv * s.B[t][n]);"),
+            ("      const float et = ex2(dtv * a2);",
+             "      const float et = e[t];")], False),
     },
     # the tree: a row held in registers by 1 (K 1024) or 4 (K 4096) warps,
     # x / s as x * (1 / s) with one FMA correction, rounding by an add
@@ -375,6 +408,7 @@ def ssm_scan_shapes(libs: dict) -> None:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels.ssm_scan import scan_lanes, ssm_scan_ref
 
     stream = torch.cuda.current_stream().cuda_stream
@@ -404,6 +438,13 @@ def ssm_scan_shapes(libs: dict) -> None:
                 A.data_ptr(), y.data_ptr(), h.data_ptr(), code, B, S, DI)
 
         def run(lib, lanes):
+            if hasattr(lib, "windve_ssm_scan_bwd"):     # no chunk states
+                return lambda: lib.windve_ssm_scan(*args[:7], None,
+                                                   *args[7:], lanes, stream)
+            # a tree before the scan's backward takes no chunk-state pointer
+            lib.windve_ssm_scan.argtypes = [
+                a for i, a in enumerate(build.SIGNATURES["windve_ssm_scan"])
+                if i != 7]
             return lambda: lib.windve_ssm_scan(*args, lanes, stream)
 
         lanes = scan_lanes(B, DI, sms)
@@ -420,6 +461,75 @@ def ssm_scan_shapes(libs: dict) -> None:
         print(json.dumps({"kernel": "ssm_scan", "B": B, "S": S, "DI": DI,
                           "x_dtype": str(dt), "lanes": lanes, **res}),
               flush=True)
+
+
+def ssm_scan_bwd_shapes(libs: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssm_scan import scan_lanes, ssm_scan_bwd_ref
+
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # hymba-1.5b's training scan (B 8 x S 512, d_inner 3200) in both x
+    # dtypes, falcon-mamba-7b's d_inner 8192 and the 1100-token prompt
+    for B, S, DI, dt in ((8, 512, 3200, torch.bfloat16),
+                         (8, 512, 3200, torch.float32),
+                         (4, 512, 8192, torch.bfloat16),
+                         (2, 1100, 3200, torch.bfloat16)):
+        N = 16
+        rng = np.random.default_rng(6)
+
+        def t(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+        x = t(rng.standard_normal((B, S, DI))).to(dt)
+        dtv = t(np.log1p(np.exp(rng.standard_normal((B, S, DI)))))
+        Bm, Cm = (t(rng.standard_normal((B, S, N))) for _ in range(2))
+        A = t(-np.broadcast_to(np.arange(1, N + 1), (DI, N)))
+        dy = t(rng.standard_normal((B, S, DI)))
+        code = 0 if dt == torch.float32 else 1
+        # the chunk states, from the tree's forward
+        y = torch.empty((B, S, DI), device="cuda")
+        h = torch.empty((B, DI, N), device="cuda")
+        hs = torch.empty((B, -(-S // 16), DI, N), device="cuda")
+        err = libs["tree"].windve_ssm_scan(
+            x.data_ptr(), dtv.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            A.data_ptr(), y.data_ptr(), h.data_ptr(), hs.data_ptr(), code, B,
+            S, DI, scan_lanes(B, DI, sms), stream)
+        if err:
+            raise RuntimeError(f"forward: CUDA error {err}")
+        want = ssm_scan_bwd_ref(x, dtv, Bm, Cm, A, dy)
+        outs = [torch.empty_like(x), torch.empty((B, S, DI), device="cuda"),
+                torch.empty((B, S, N), device="cuda"),
+                torch.empty((B, S, N), device="cuda"),
+                torch.empty((DI, N), device="cuda")]
+        dA_part = torch.empty((B, DI, N), device="cuda")
+        parts = {}
+        for name, lib in libs.items():
+            blocks = -(-DI // lib.windve_ssm_scan_bwd_channels())
+            parts[name] = torch.empty((2, blocks, B, S, N), device="cuda")
+
+        def run(name):
+            lib, part = libs[name], parts[name]
+            return lambda: lib.windve_ssm_scan_bwd(
+                x.data_ptr(), dtv.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                A.data_ptr(), dy.data_ptr(), None, hs.data_ptr(),
+                *(o.data_ptr() for o in outs), part.data_ptr(),
+                dA_part.data_ptr(), code, B, S, DI, stream)
+
+        def close():
+            for i, (g, w) in enumerate(zip(outs, want)):
+                g, w = g.float(), w.float()
+                lim = 2.0 ** -7 if i == 0 and dt == torch.bfloat16 else 1e-4
+                if (g - w).abs().max() > lim * w.abs().max():
+                    return False
+            return True
+
+        res = in_turns({name: run(name) for name in libs}, lambda fn: fn(),
+                       close)
+        print(json.dumps({"kernel": "ssm_scan_bwd", "B": B, "S": S,
+                          "DI": DI, "x_dtype": str(dt), **res}), flush=True)
 
 
 def quantize_rows_shapes(libs: dict) -> None:
@@ -593,6 +703,7 @@ def main() -> int:
     {"w8a8": w8a8_shapes, "rmsnorm": rmsnorm_shapes,
      "attention_fp32": attention_fp32_shapes,
      "ssm_scan": ssm_scan_shapes,
+     "ssm_scan_bwd": ssm_scan_bwd_shapes,
      "quantize_rows": quantize_rows_shapes,
      "attention_bwd": attention_bwd_shapes,
      "rmsnorm_bwd": rmsnorm_bwd_shapes}[args.set](libs)

@@ -50,7 +50,15 @@ non-zero:
            1024-token sequence under a 256 window, a ragged kv_len with a
            row of none, and whisper's 64 queries over 1500 frames, each
            with the forward kernel's lse against the plain version's;
-           RMSNorm over 4096 rows of d 2048 and 6144.
+           RMSNorm over 4096 rows of d 2048 and 6144.  The scan's backward
+           kernel against its plain backward (each gradient within 1e-4 of
+           its largest magnitude; a bf16 x's dx within one bf16 step) and
+           bit for bit equal across two calls, with autograd's backward of
+           the plain scan timed beside it: hymba-1.5b's training shape (B
+           8, S 512, d_inner 3200), falcon-mamba-7b's d_inner 8192 (B 4),
+           the 1100-token prompt (B 2) and S and DI off its tiles ((3, 33,
+           130), (1, 1, 7)), each with and without a final-state gradient,
+           in both x dtypes.
   golden   tests/golden/golden_embed.npz through params_from_numpy and
            ShardedEmbedderBackend: fp32 within 1e-5 max-abs of the golden
            vectors, bf16 and int8 within 1e-2 cosine distance, int8_w8a8
@@ -133,17 +141,23 @@ non-zero:
            are zeroed just before the fanned-out and the sharded runs and
            read just after; one flash_decode launch a shard a layer a
            step.  No speed across cards is claimed.
-  train    stablelm-1.6b at its published width and depth (24 layers, d
-           2048, 32 heads, d_ff 5632, vocab 100352: 1.644 B params, fp32
-           weights, gradients and AdamW moments, 26.3 GB) through
+  train    stablelm-1.6b (24 layers, d 2048, 32 heads, d_ff 5632, vocab
+           100352: 1.644 B params, fp32 weights, gradients and AdamW
+           moments, 26.3 GB), then hymba-1.5b (32 layers, d 1600, attention
+           over 25 heads on 5 KV heads beside a mamba mixer of d_inner
+           3200, d_ff 5504, vocab 32001: 1.662 B params, 26.6 GB), each at
+           its published width and depth and alone on the card, through
            steps/train.py's build_train_step at B 8 x S 512, every layer
            rematerialised: (a) one step's loss and gradients through the
            kernels against the plain versions in fp32 compute (loss within
            1e-5 relative, every gradient leaf at cosine >= 0.9999); (b) 20
            steps in bf16 compute at lr 3e-4 on the zipf TokenStream, launch
-           counts zeroed just before and read just after (per step: 2 x 24
-           flash_attention, 24 flash_attention_bwd, 97 rmsnorm, 49
-           rmsnorm_bwd); the mean loss of the last 5 below the first 5's;
+           counts zeroed just before and read just after (per step,
+           stablelm: 2 x 24 flash_attention, 24 flash_attention_bwd, 97
+           rmsnorm, 49 rmsnorm_bwd; hymba: 2 x 32 flash_attention and
+           ssm_scan, 32 flash_attention_bwd and ssm_scan_bwd, 129 rmsnorm,
+           65 rmsnorm_bwd; every other kernel none); the mean loss of the
+           last 5 below the first 5's;
            ms a step by CUDA events, the host's enqueue time a step,
            tokens/s, 6 N tokens over the step time at the bf16 peak, peak
            memory; then one traced step's five largest device operations,
@@ -204,7 +218,8 @@ SS_SOURCE = "src/repro_torch/csrc/ssm_scan.cu"
 RN_REPLACES = "src/repro/kernels/rmsnorm/rmsnorm.py:35"
 FD_REPLACES = "src/repro/kernels/flash_decode/flash_decode.py:88"
 # the backward kernels replace no TPU kernel (the reference trains through
-# its jnp attention and norm); each row names the forward it differentiates
+# its jnp attention and norm and its lax.scan); each row names the forward
+# it differentiates
 FAB_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 SS_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:74"
 # the main path's attention and epilogue shapes: bge-large-zh-v1.5 at
@@ -271,10 +286,13 @@ MESH_POSITIONS = 4
 MESH_ARCH, MESH_B, MESH_CACHE, MESH_PROMPTS, MESH_NEW = (
     "qwen2-72b", 4, 256, (200, 40), 16)
 # the train phase: stablelm-1.6b, the reference's default training model,
-# at its published width and depth (1.644 B params), B 8 x S 512, bf16
-# compute, AdamW at lr 3e-4 for TRAIN_STEPS steps on the zipf TokenStream
+# and hymba-1.5b (attention and mamba heads in parallel), each at its
+# published width and depth (1.644 B and 1.662 B params), B 8 x S 512, bf16
+# compute, AdamW at lr 3e-4 for TRAIN_STEPS steps on the zipf TokenStream;
+# the checkpoint resume runs on stablelm's smoke config
+TRAIN_ARCHS = ("stablelm-1.6b", "hymba-1.5b")
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = (
-    "stablelm-1.6b", 8, 512, 20, 3e-4)
+    TRAIN_ARCHS[0], 8, 512, 20, 3e-4)
 TRAIN_LOSS_REL, TRAIN_GRAD_COSINE = 1e-5, 0.9999
 
 
@@ -840,20 +858,9 @@ def ssm_case(dev, B, S, DI, N, dt, sfu) -> dict:
     """The selective scan from a zero state; y and h are fp32 on both
     sides, so the limit is fp32's for either x dtype.  ``sfu``: the card's
     exp2 rate (``sfu_rate``)."""
-    import numpy as np
-    import torch
-
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
 
-    rng = np.random.default_rng(6)
-
-    def t(a, dtype=torch.float32):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
-
-    x = t(rng.standard_normal((B, S, DI)), dt)
-    dtv = t(np.log1p(np.exp(rng.standard_normal((B, S, DI)))))  # softplus
-    Bm, Cm = (t(rng.standard_normal((B, S, N))) for _ in range(2))
-    A = t(-np.broadcast_to(np.arange(1, N + 1), (DI, N)))
+    x, dtv, Bm, Cm, A = _scan_inputs(dev, B, S, DI, N, dt)
     y, h = ssm_scan(x, dtv, Bm, Cm, A)
     y_ref, h_ref = ssm_scan_ref(x, dtv, Bm, Cm, A)
     ey, my = _rel_err(y, y_ref)
@@ -883,6 +890,108 @@ def ssm_case(dev, B, S, DI, N, dt, sfu) -> dict:
     few = {"reps": 3, "inner": 2} if S > 256 else {}
     out["plain_ms"] = time_ms(lambda: ssm_scan_ref(x, dtv, Bm, Cm, A), dev,
                               **few)
+    out["library_ms"] = None       # no one PyTorch call runs the scan
+    return out
+
+
+def _scan_inputs(dev, B, S, DI, N, dt, seed=6):
+    """x (in ``dt``), softplus dt, B and C, A = -(1 .. N) in every channel
+    (Mamba-1's S4D-real start), from one seeded generator."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    x = t(rng.standard_normal((B, S, DI)), dt)
+    dtv = t(np.log1p(np.exp(rng.standard_normal((B, S, DI)))))  # softplus
+    Bm, Cm = (t(rng.standard_normal((B, S, N))) for _ in range(2))
+    A = t(-np.broadcast_to(np.arange(1, N + 1), (DI, N)))
+    return x, dtv, Bm, Cm, A
+
+
+# the scan backward's gradients, in the order ssm_scan_bwd returns them
+SCAN_GRADS = ("dx", "ddt", "dBm", "dCm", "dA")
+
+
+def ssm_bwd_case(dev, B, S, DI, N, dt, dh, sfu) -> dict:
+    """The scan's backward kernel against ``ssm_scan_bwd_ref`` on the same
+    inputs, output gradient dy and, when ``dh``, a nonzero final-state
+    gradient; the chunk states from the forward kernel.  Each gradient is
+    held within 1e-4 of its largest magnitude (fp32 on both sides), but dx
+    of a bf16 x within one bf16 step at its largest magnitude (2^-7 of
+    it): both round it once from fp32.  The plain version timed is
+    autograd's backward of ``ssm_scan_ref``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssm_scan import (ssm_scan_bwd, ssm_scan_bwd_ref,
+                                              ssm_scan_ref)
+    from repro_torch.kernels.ssm_scan.ops import _forward
+
+    x, dtv, Bm, Cm, A = _scan_inputs(dev, B, S, DI, N, dt)
+    rng = np.random.default_rng(7)
+    dy = torch.from_numpy(rng.standard_normal((B, S, DI), np.float32)).to(dev)
+    dhf = (torch.from_numpy(rng.standard_normal((B, DI, N), np.float32))
+           .to(dev) if dh else None)
+    states = (_forward(x, dtv, Bm, Cm, A, True)[2] if dev.type == "cuda"
+              else None)
+    args = (x, dtv, Bm, Cm, A, dy, dhf, states)
+    got = ssm_scan_bwd(*args)
+    again = ssm_scan_bwd(*args)
+    want = ssm_scan_bwd_ref(*args[:7])
+    # no float atomics: a second call gives the same bits
+    repeat = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    out = {"B": B, "S": S, "DI": DI, "N": N, "x_dtype": dtype_name(dt),
+           "dh_final": dh, "held": "max_abs_over_max",
+           "max_abs_err": max(_rel_err(g, w)[0] for g, w in zip(got, want)),
+           "bitwise_repeat": repeat}
+    ok = repeat and got[0].dtype == dt
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        err, mag = _rel_err(g, w)
+        rel = err / max(mag, 1e-30)
+        lim = 2.0 ** -7 if name == "dx" and dt == torch.bfloat16 else 1e-4
+        out[name] = rel
+        ok = ok and bool(torch.isfinite(g).all().item()) and rel <= lim
+    out["ok"] = ok
+    # reads x, dt and dy, writes dx and ddt: (B, S, DI) streams; reads B, C
+    # and writes dB, dC; reads A, dh_final and the forward's chunk states,
+    # writes dA.  A (b, t, d, n) needs one exp on the SFU (the kernel forms
+    # it twice, in the recompute and the reverse step) and 19 fp32 flops
+    # (the recompute 5, the reverse step 10, the sums over n and d 4); a
+    # (b, t, d) 5 more.
+    esize = x.element_size()
+    chunks = -(-S // 16)
+    nbytes = (B * S * DI * (2 * esize + 12) + 16 * B * S * N
+              + 8 * DI * N + 4 * B * chunks * DI * N
+              + (4 * B * DI * N if dh else 0))
+    elems = B * S * DI * N
+    terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fma_ms": (19 * elems + 5 * B * S * DI) / PEAK_FLOPS["float32"]
+             * 1e3,
+             "sfu_ms": elems / sfu["per_s"] * 1e3}
+    out["bound_ms"] = max(terms.values())
+    out["bound_by"] = ("bytes" if terms["bytes_ms"] == out["bound_ms"]
+                       else "operations")
+    out["bound_terms"] = terms
+    out["kernel_ms"] = time_ms(lambda: ssm_scan_bwd(*args), dev)
+    if dev.type == "cuda":
+        out["split_ms"] = kernel_split(lambda: ssm_scan_bwd(*args),
+                                       ("ssm_scan_bwd_kernel",
+                                        "ssm_scan_bwd_sums"))
+    # the plain version: autograd's backward of the plain scan, its graph
+    # built once; S small ops a step, so few repetitions at a long S
+    leaves = [a.detach().clone().requires_grad_() for a in (x, dtv, Bm, Cm,
+                                                             A)]
+    y, h = ssm_scan_ref(*leaves)
+    grads = (dy, dhf if dh else torch.zeros_like(h))
+    few = {"reps": 3, "inner": 2} if S > 256 else {}
+    out["plain_ms"] = time_ms(
+        lambda: torch.autograd.grad((y, h), leaves, grads,
+                                    retain_graph=True), dev, **few)
+    del y, h, leaves
     out["library_ms"] = None       # no one PyTorch call runs the scan
     return out
 
@@ -1203,6 +1312,27 @@ def phase_kernels(args, dev) -> dict:
                 dev, b, h, kv, sq, sk, d, dt, lens or [sk] * b,
                 causal=causal, window=win))
             attn_bwd_cases[f"{tag}_{dtype_name(dt)}"] = attn_bwd[-1]
+    # the scan's backward: hymba-1.5b's training shape (B 8 x S 512, d_inner
+    # 3200), falcon-mamba-7b's d_inner 8192, the 1100-token prompt, S and
+    # DI off the 16-step chunks and the 32-channel blocks; each with and
+    # without a final-state gradient, in both x dtypes (on the CPU: smoke
+    # sizes)
+    scan_bwd_shapes = ((("hymba_train", TRAIN_B, TRAIN_S, LM_DI),
+                        ("falcon_mamba_DI8192", 4, TRAIN_S, 8192),
+                        ("long_prompt", 2, LONG_PROMPT, LM_DI),
+                        ("B3_S33_DI130", 3, 33, 130), ("B1_S1_DI7", 1, 1, 7))
+                       if t else
+                       (("hymba_train", 2, 32, DI), ("falcon_mamba_DI8192", 2,
+                                                      32, 512),
+                        ("long_prompt", 2, 40, DI),
+                        ("B3_S33_DI130", 3, 33, 130), ("B1_S1_DI7", 1, 1, 7)))
+    ssm_bwd, ssm_bwd_cases = [], {}
+    for tag, b, s, di in scan_bwd_shapes:
+        for dt in (bf16, f32):
+            for dh in (False, True):
+                ssm_bwd.append(ssm_bwd_case(dev, b, s, di, LM_N, dt, dh, sfu))
+                key = f"{tag}_{dtype_name(dt)}{'_dh' if dh else ''}"
+                ssm_bwd_cases[key] = ssm_bwd[-1]
     rms_bwd_rows = TRAIN_B * TRAIN_S if t else 64
     rms_bwd, rms_bwd_cases = [], {}
     for d in ((2048, 6144) if t else (128, 200)):
@@ -1218,7 +1348,8 @@ def phase_kernels(args, dev) -> dict:
              + [("ssm_scan", c) for c in ssm]
              + [("flash_decode", c) for c in fd + fd_lse]
              + [("flash_attention_bwd", c) for c in attn_bwd]
-             + [("rmsnorm_bwd", c) for c in rms_bwd])
+             + [("rmsnorm_bwd", c) for c in rms_bwd]
+             + [("ssm_scan_bwd", c) for c in ssm_bwd])
     for name, c in cases:
         emit({"phase": "kernels", "kernel": name, **c})
     bad = [c for _, c in cases if not c["ok"]]
@@ -1237,8 +1368,10 @@ def phase_kernels(args, dev) -> dict:
             "quant_matmul": qm[1], "quantize_rows": qr[0],
             "w8a8_matmul": w8[1], "rmsnorm": rms[1], "ssm_scan": ssm[0],
             "flash_decode": fd[0],
-            # the train path: bf16 compute at stablelm-1.6b's training shape
+            # the train path: bf16 compute at stablelm-1.6b's training
+            # shape; the scan at hymba-1.5b's, whose h_final has no gradient
             "flash_attention_bwd": attn_bwd[0], "rmsnorm_bwd": rms_bwd[0],
+            "ssm_scan_bwd": ssm_bwd[0],
             # the redesigned paths, each at the main paths' shapes
             "cases": {"flash_attention": attn_cases, "pool_norm": pool_cases,
                       "quant_matmul": {
@@ -1278,7 +1411,8 @@ def phase_kernels(args, dev) -> dict:
                           "qwen2_lse_4x1024_q_bf16_cache_f32": fd_lse[0],
                           "qwen2_lse_4x1024_q_f32_cache_f32": fd_lse[1]},
                       "flash_attention_bwd": attn_bwd_cases,
-                      "rmsnorm_bwd": rms_bwd_cases}}
+                      "rmsnorm_bwd": rms_bwd_cases,
+                      "ssm_scan_bwd": ssm_bwd_cases}}
 
 
 def golden_tree():
@@ -2600,14 +2734,27 @@ def train_resume(dev) -> dict:
             and int(o_res["step"]) == 6}
 
 
-def phase_train(args, dev) -> dict:
-    """stablelm-1.6b at its published width and depth (1.644 B params,
-    fp32 weights and AdamW state), B 8 x S 512: (a) one step's loss and
-    gradients through the kernels against the plain versions in fp32
-    compute; (b) TRAIN_STEPS steps in bf16 compute at lr 3e-4 on the zipf
-    TokenStream, launch counts zeroed just before and read just after, the
-    loss falling, step time by CUDA events, peak memory, then one traced
-    step; (c) launch/train.py's checkpoint resume at the smoke config."""
+def train_counts(cfg) -> dict:
+    """Kernel launches one remat'd train step of ``cfg`` makes: each
+    layer's attention, norms and scan forward twice (the forward, then its
+    recompute in the backward) and backward once, and the final norm once
+    each way."""
+    L = cfg.num_layers
+    want = {"rmsnorm": 2 * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1}
+    if cfg.has_attention:
+        want.update(flash_attention=2 * L, flash_attention_bwd=L)
+    if cfg.has_ssm:
+        want.update(ssm_scan=2 * L, ssm_scan_bwd=L)
+    return want
+
+
+def train_arch(dev, arch: str) -> dict:
+    """``arch`` at its published width and depth (fp32 weights and AdamW
+    state), B 8 x S 512: (a) one step's loss and gradients through the
+    kernels against the plain versions in fp32 compute; (b) TRAIN_STEPS
+    steps in bf16 compute at lr 3e-4 on the zipf TokenStream, launch counts
+    zeroed just before and read just after, the loss falling, step time by
+    CUDA events, peak memory, then one traced step."""
     import gc
 
     import torch
@@ -2622,7 +2769,7 @@ def phase_train(args, dev) -> dict:
                                          value_and_grad)
 
     cuda = dev.type == "cuda"
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     B, S = TRAIN_B, TRAIN_S
     if not cuda:
         cfg, B, S = cfg.smoke(), 2, 32
@@ -2634,8 +2781,7 @@ def phase_train(args, dev) -> dict:
     stream = TokenStream(TrainBatchSpec(B, S, cfg.vocab_size), seed=0)
     out = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "heads": cfg.num_heads, "d_ff": cfg.d_ff,
-           "vocab": cfg.vocab_size, "params": n_params, "B": B, "S": S,
-           "card": card_line()}
+           "vocab": cfg.vocab_size, "params": n_params, "B": B, "S": S}
 
     # (a) kernels against plain versions, fp32 compute, before the optimizer
     batch = next(stream)
@@ -2685,17 +2831,13 @@ def phase_train(args, dev) -> dict:
     sync()
     counts = launch_counts()              # ... and ends here
     out["launches"] = {k: v for k, v in counts.items() if v}
-    L = cfg.num_layers
-    # a step: each layer's attention and two norms forward twice (the
-    # forward, then its recompute in the backward) and backward once, and
-    # the final norm once each way
-    want = {"flash_attention": 2 * L, "flash_attention_bwd": L,
-            "rmsnorm": 2 * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1}
+    want = train_counts(cfg)
+    out["launches_per_step_want"] = want
     if cuda:
-        for name, n in want.items():
-            require(counts[name] == n * TRAIN_STEPS,
-                    f"{name}: {counts[name]} launches, want "
-                    f"{n * TRAIN_STEPS}")
+        for name, n in counts.items():
+            require(n == want.get(name, 0) * TRAIN_STEPS,
+                    f"{name}: {n} launches, want "
+                    f"{want.get(name, 0) * TRAIN_STEPS}")
     first, last = (statistics.mean(losses[:5]), statistics.mean(losses[-5:]))
     steady = statistics.median(times[2:])
     tokens = B * S
@@ -2714,7 +2856,7 @@ def phase_train(args, dev) -> dict:
     require(out["finite"], "a non-finite loss")
     require(last < first, f"loss did not fall: first-5 mean {first}, "
                           f"last-5 mean {last}")
-    # (d) one traced step: the device operations that took most time
+    # one traced step: the device operations that took most time
     acts = [torch.profiler.ProfilerActivity.CPU] + (
         [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
     b = next(stream)
@@ -2725,7 +2867,7 @@ def phase_train(args, dev) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     if cuda:
         # device busy: the kernels' durations in the trace, over the wall
-        path = os.path.join(ROOT, "build", "profile", "train_step.json")
+        path = os.path.join(ROOT, "build", "profile", f"train_step_{arch}.json")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         prof.export_chrome_trace(path)
         with open(path) as f:
@@ -2750,10 +2892,35 @@ def phase_train(args, dev) -> dict:
     out["top_device_ops"] = [{"name": r.key[:80],
                               "ms": getattr(r, attr) / 1e3,
                               "calls": r.count} for r in top]
-    del params, opt, m, step
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(args, dev) -> dict:
+    """Each of TRAIN_ARCHS through ``train_arch``, one at a time (each
+    one's params, AdamW state and step freed before the next), then (c)
+    launch/train.py's checkpoint resume at the smoke config.  The train
+    path's launches are the sum of the archs' counted runs."""
+    import gc
+
+    import torch
+
+    out = {"card": card_line()}
+    launches: dict = {}
+    failed = []
+    for arch in TRAIN_ARCHS:
+        try:
+            res = train_arch(dev, arch)
+        except PhaseFailed as e:          # report it, run the next arch
+            res = {"error": str(e)}
+            failed.append(f"{arch}: {e}")
+        out[arch] = res
+        for name, n in res.get("launches", {}).items():
+            launches[name] = launches.get(name, 0) + n
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["launches"] = launches
+    require(not failed, "; ".join(failed))
 
     # (c) checkpoint round trip through launch/train.py, smoke config
     out["resume"] = train_resume(dev)
@@ -2782,7 +2949,8 @@ KERNELS = (("flash_attention", FA_SOURCE, FA_REPLACES),
            ("ssm_scan", SS_SOURCE, SS_REPLACES),
            ("flash_decode", FD_SOURCE, FD_REPLACES),
            ("flash_attention_bwd", FAB_SOURCE, FA_REPLACES),
-           ("rmsnorm_bwd", RN_SOURCE, RN_REPLACES))
+           ("rmsnorm_bwd", RN_SOURCE, RN_REPLACES),
+           ("ssm_scan_bwd", SS_SOURCE, SS_REPLACES))
 
 
 def kernel_summary(main: dict, by_path: dict) -> dict:
@@ -2794,7 +2962,8 @@ def kernel_summary(main: dict, by_path: dict) -> dict:
     # fp32 attention's CUDA-core figure; quantize_rows' traffic yardstick;
     # the sharded decode read's launches alone and its log-sum-exps' error
     extra = ("bound_cuda_core_ms", "yardstick_to_int8_ms", "lse_launches_ms",
-             "lse_max_abs_err", "held", "dq", "dk", "dv", "dx", "dscale")
+             "lse_max_abs_err", "held", "dq", "dk", "dv", "dx", "dscale",
+             "ddt", "dBm", "dCm", "dA", "bitwise_repeat")
     for name, source, replaces in KERNELS:
         c = main[name]
         per_path = {path: counts.get(name, 0)

@@ -49,6 +49,40 @@
 //     multiple of 4 floats / 8 bf16) take an instantiation that copies
 //     element by element.  N is 16, the state size of every Mamba-1
 //     configuration in the repo.
+//
+// The backward (windve_ssm_scan_bwd) replaces no TPU kernel: the JAX package
+// differentiates its lax.scan (src/repro/models/layers.py mamba_scan_ref,
+// mamba_scan_chunked).  Given dy (and optionally the final state's
+// gradient), with e_t = exp(dt_t A) and g_t the gradient of h_t,
+//   g_t = C_t dy_t + e_{t+1} g_{t+1},
+//   dx_t = dt_t sum_n g_t B_t,  ddt_t = x_t sum_n g_t B_t + sum_n A q_t,
+//   dB_t = sum_d g_t dt_t x_t,  dC_t = sum_d dy_t h_t,  dA = sum_{b,t} dt_t q_t
+// with q_t = g_t e_t h_{t-1}.  What bounds it: per (b, t, d, n) one exp (the
+// kernel forms it twice, in the recompute and in the reverse step) and
+// about 19 fp32 flops; at hymba-1.5b's training shape (B 8, S 512, DI 3200)
+// 210 M exps, 0.050 ms on the SFU, 0.060 ms of flops, and 0.079 ms for the
+// bytes (bf16 x; the forward's chunk states, 52 MB, included).  As written
+// it takes about 13 times that: its variants in blocks an SM, channels a
+// block and exps formed once or twice all time alike, so neither occupancy
+// nor the SFU sets it.  Suspects, not yet measured: about nine shared-memory
+// reads and two stores a thread and step, and three barriers a chunk.
+//   - The forward, when asked (hs not null), writes the state entering each
+//     CHUNK-step chunk, (B, ceil(S / CHUNK), DI, N) fp32.  The backward walks
+//     the chunks in reverse; in each it recomputes the chunk's states from
+//     the saved one, as the forward formed them, into registers, then runs
+//     the reverse recurrence.  h_{t-1} is never formed as h_t / e_t: e_t
+//     underflows to 0 at large |A| dt.
+//   - A thread holds one (channel, state): 32 channels x 16 states a block
+//     of 512 threads, so a chunk's 16 states fit its registers.
+//     x, dt, dy, B and C are staged a chunk ahead by cp.async, as in the
+//     forward.  The sums over n (dx, ddt) are a reduce-scatter over a
+//     channel's 16 lanes once a chunk, which leaves lane n with step n's
+//     sums; dx and ddt rows are written through shared memory.
+//   - The sums over d (dB, dC) go through shared memory: each block sums its
+//     32 channels in order and writes a partial per (block, b, t, n); dA's
+//     partials are per (b, d, n).  A second kernel sums the partials over
+//     the blocks, and dA's over the batch, in a fixed order: no float
+//     atomics, so two calls give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -182,7 +216,8 @@ __global__ void __launch_bounds__(THREADS)
 ssm_scan_kernel(const X* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ Bm, const float* __restrict__ Cm,
                 const float* __restrict__ A, float* __restrict__ y,
-                float* __restrict__ h_out, int S, int DI) {
+                float* __restrict__ h_out, float* __restrict__ hs, int S,
+                int DI) {
   using L = Lanes<LANES>;
   constexpr int NL = L::NL, CH = L::CH;
   __shared__ Stage<X, CH> st[2];
@@ -207,6 +242,12 @@ ssm_scan_kernel(const X* __restrict__ x, const float* __restrict__ dt,
   cp_async_commit();
   for (int ci = 0; ci < chunks; ++ci) {
     const int t0 = ci * CHUNK, len = min(CHUNK, S - t0);
+    if (hs != nullptr && active) {   // the state entering chunk ci
+      float* dst = hs + ((static_cast<long long>(b) * chunks + ci) * DI + d)
+                            * N_STATE + sub * NL;
+#pragma unroll
+      for (int j = 0; j < NL; ++j) dst[j] = h[j];
+    }
     if (ci + 1 < chunks) {   // the buffer chunk ci + 1 takes was freed at ci - 1
       stage<X, CH, VEC>(st[(ci + 1) & 1], x, dt, Bm, Cm, row, S, DI, d0,
                         t0 + CHUNK);
@@ -308,30 +349,34 @@ ssm_scan_kernel(const X* __restrict__ x, const float* __restrict__ dt,
 
 template <typename X, int LANES, bool VEC>
 cudaError_t launch(const void* x, const void* dt, const void* Bm,
-                   const void* Cm, const void* A, void* y, void* h, int B,
-                   int S, int DI, cudaStream_t st) {
+                   const void* Cm, const void* A, void* y, void* h, void* hs,
+                   int B, int S, int DI, cudaStream_t st) {
   constexpr int CH = Lanes<LANES>::CH;
   const dim3 grid((DI + CH - 1) / CH, B);
   ssm_scan_kernel<X, LANES, VEC><<<grid, THREADS, 0, st>>>(
       static_cast<const X*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(Bm), static_cast<const float*>(Cm),
       static_cast<const float*>(A), static_cast<float*>(y),
-      static_cast<float*>(h), S, DI);
+      static_cast<float*>(h), static_cast<float*>(hs), S, DI);
   return cudaGetLastError();
 }
 
 template <typename X, int LANES>
 cudaError_t launch_as(bool vec, const void* x, const void* dt,
                       const void* Bm, const void* Cm, const void* A, void* y,
-                      void* h, int B, int S, int DI, cudaStream_t st) {
-  return vec ? launch<X, LANES, true>(x, dt, Bm, Cm, A, y, h, B, S, DI, st)
-             : launch<X, LANES, false>(x, dt, Bm, Cm, A, y, h, B, S, DI, st);
+                      void* h, void* hs, int B, int S, int DI,
+                      cudaStream_t st) {
+  return vec ? launch<X, LANES, true>(x, dt, Bm, Cm, A, y, h, hs, B, S, DI,
+                                      st)
+             : launch<X, LANES, false>(x, dt, Bm, Cm, A, y, h, hs, B, S, DI,
+                                       st);
 }
 
 template <typename X>
 cudaError_t dispatch(const void* x, const void* dt, const void* Bm,
-                     const void* Cm, const void* A, void* y, void* h, int B,
-                     int S, int DI, int lanes, cudaStream_t st) {
+                     const void* Cm, const void* A, void* y, void* h,
+                     void* hs, int B, int S, int DI, int lanes,
+                     cudaStream_t st) {
   // 16-byte pieces need 16-byte aligned bases and rows of whole pieces
   const void* ptrs[6] = {x, dt, Bm, Cm, y, h};
   bool vec = DI % (16 / sizeof(X)) == 0 && DI % 4 == 0;
@@ -339,31 +384,347 @@ cudaError_t dispatch(const void* x, const void* dt, const void* Bm,
     vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   switch (lanes) {
     case 2:
-      return launch_as<X, 2>(vec, x, dt, Bm, Cm, A, y, h, B, S, DI, st);
+      return launch_as<X, 2>(vec, x, dt, Bm, Cm, A, y, h, hs, B, S, DI, st);
     case 8:
-      return launch_as<X, 8>(vec, x, dt, Bm, Cm, A, y, h, B, S, DI, st);
+      return launch_as<X, 8>(vec, x, dt, Bm, Cm, A, y, h, hs, B, S, DI, st);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The backward
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_CH = 32;                       // channels a block
+constexpr int BWD_THREADS = BWD_CH * N_STATE;    // a thread a (channel, state)
+constexpr int BWD_MIN_BLOCKS = 2;                // blocks an SM, for registers
+// a step's row of (channel, state) partials, padded so that the reducing
+// threads of two steps fall on different banks
+constexpr int RED_PITCH = BWD_CH * N_STATE + 16;
+constexpr int OUT_PITCH = BWD_CH + 1;            // dx and ddt rows
+
+__device__ __forceinline__ void from_f(float v, float& out) { out = v; }
+__device__ __forceinline__ void from_f(float v, __nv_bfloat16& out) {
+  out = __float2bfloat16_rn(v);
+}
+
+template <typename X>
+struct BwdStage {
+  __align__(16) X x[CHUNK][BWD_CH];
+  __align__(16) float dt[CHUNK][BWD_CH];
+  __align__(16) float dy[CHUNK][BWD_CH];
+  __align__(16) float B[CHUNK][N_STATE];
+  __align__(16) float C[CHUNK][N_STATE];
+};
+
+template <typename X>
+struct BwdSmem {
+  BwdStage<X> st[2];
+  float red[2][CHUNK][RED_PITCH];   // dB's, then dC's (step, channel, state)
+  float sdx[CHUNK][OUT_PITCH];
+  float sddt[CHUNK][OUT_PITCH];
+};
+
+// Piece i of a (CHUNK, CH) tile of a (rows, DI) stream: steps [t0, t0 +
+// CHUNK) of channels [d0, d0 + CH), zeros at or past step S and past DI.
+template <typename E, int CH, bool VEC>
+__device__ __forceinline__ void stage_tile(E (*dst)[CH], const E* src,
+                                           long long row, int S, int DI,
+                                           int d0, int t0, int i) {
+  constexpr int P = 16 / sizeof(E), R = CH / P;
+  const int t = i / R, c = (i % R) * P, tt = t0 + t, d = d0 + c;
+  const E* s = src + (row + tt) * DI + d;
+  if (VEC || tt >= S || d + P <= DI) {
+    copy16<E, VEC>(&dst[t][c], s, tt < S && d < DI);
+  } else {
+    for (int e = 0; e < P; ++e) {
+      if (d + e < DI) dst[t][c + e] = s[e];
+      else set_zero(dst[t][c + e]);
+    }
+  }
+}
+
+template <typename X, bool VEC>
+__device__ __forceinline__ void stage_bwd(BwdStage<X>& s, const X* x,
+                                          const float* dt, const float* dy,
+                                          const float* Bm, const float* Cm,
+                                          long long row, int S, int DI,
+                                          int d0, int t0) {
+  constexpr int NX = CHUNK * BWD_CH * static_cast<int>(sizeof(X)) / 16;
+  constexpr int NF = CHUNK * BWD_CH / 4, NN = CHUNK * N_STATE / 4;
+  for (int i = threadIdx.x; i < NX + 2 * NF + 2 * NN; i += BWD_THREADS) {
+    int j = i;
+    if (j < NX) {
+      stage_tile<X, BWD_CH, VEC>(s.x, x, row, S, DI, d0, t0, j);
+    } else if ((j -= NX) < 2 * NF) {
+      const bool w = j >= NF;
+      stage_tile<float, BWD_CH, VEC>(w ? s.dy : s.dt, w ? dy : dt, row, S,
+                                     DI, d0, t0, w ? j - NF : j);
+    } else {
+      j -= 2 * NF;
+      const bool w = j >= NN;
+      if (w) j -= NN;
+      const int t = j / (N_STATE / 4), c = (j % (N_STATE / 4)) * 4;
+      const int tt = t0 + t;
+      copy16<float, VEC>(w ? &s.C[t][c] : &s.B[t][c],
+                         (w ? Cm : Bm) + (row + tt) * N_STATE + c, tt < S);
+    }
+  }
+}
+
+template <typename X, bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
+ssm_scan_bwd_kernel(const X* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ Bm, const float* __restrict__ Cm,
+                    const float* __restrict__ A, const float* __restrict__ dy,
+                    const float* __restrict__ dh_final,
+                    const float* __restrict__ hs, X* __restrict__ dx,
+                    float* __restrict__ ddt, float* __restrict__ part,
+                    float* __restrict__ dA_part, int B, int S, int DI) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem<X>& sm = *reinterpret_cast<BwdSmem<X>*>(smem_raw);
+  const int b = blockIdx.y, d0 = blockIdx.x * BWD_CH;
+  const int c = threadIdx.x / N_STATE, n = threadIdx.x % N_STATE;
+  const int d = d0 + c;
+  const bool active = d < DI;
+  const long long row = static_cast<long long>(b) * S;
+  const long long hidx = (static_cast<long long>(b) * DI + d) * N_STATE + n;
+  const float a = active ? A[static_cast<long long>(d) * N_STATE + n] : 0.f;
+  const float a2 = a * LOG2E;
+  // G = e_{t+1} g_{t+1}: the gradient h_t takes from later steps
+  float G = active && dh_final != nullptr ? dh_final[hidx] : 0.f;
+  float dA_acc = 0.f;
+
+  const int chunks = (S + CHUNK - 1) / CHUNK;
+  // the state entering chunk ci, as the forward saved it
+  auto saved_state = [&](int ci) {
+    return active ? hs[((static_cast<long long>(b) * chunks + ci) * DI + d)
+                           * N_STATE + n]
+                  : 0.f;
+  };
+  float h_next = chunks > 0 ? saved_state(chunks - 1) : 0.f;
+  if (chunks > 0)
+    stage_bwd<X, VEC>(sm.st[(chunks - 1) & 1], x, dt, dy, Bm, Cm, row, S, DI,
+                      d0, (chunks - 1) * CHUNK);
+  cp_async_commit();
+  for (int ci = chunks - 1; ci >= 0; --ci) {
+    const int t0 = ci * CHUNK;
+    const float h0 = h_next;                 // loaded a chunk ahead
+    if (ci > 0) {      // the buffer chunk ci - 1 takes was freed at ci + 1
+      h_next = saved_state(ci - 1);
+      stage_bwd<X, VEC>(sm.st[(ci - 1) & 1], x, dt, dy, Bm, Cm, row, S, DI,
+                        d0, t0 - CHUNK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const BwdStage<X>& s = sm.st[ci & 1];
+    // The chunk's states, formed as the forward forms them: hh[t] = h_{t-1}.
+    // Steps past S were staged as zeros: e = 1 and nothing added, so h, and
+    // in the reverse g, pass through them unchanged.
+    float hh[CHUNK + 1];
+    hh[0] = h0;
+#pragma unroll
+    for (int t = 0; t < CHUNK; ++t) {
+      const float dtv = s.dt[t][c];
+      const float dxv = dtv * to_f(s.x[t][c]);
+      hh[t + 1] = fmaf(hh[t], ex2(dtv * a2), dxv * s.B[t][n]);
+      sm.red[1][t][c * N_STATE + n] = s.dy[t][c] * hh[t + 1];   // dC's
+    }
+    // The reverse recurrence, each step's exp formed again (holding the
+    // recompute's took 16 more registers and timed the same); v1, v2: the
+    // lane's terms of sum_n g B and sum_n A q at each step.
+    float v1[CHUNK], v2[CHUNK];
+#pragma unroll
+    for (int t = CHUNK - 1; t >= 0; --t) {
+      const float dtv = s.dt[t][c];
+      const float et = ex2(dtv * a2);
+      const float g = fmaf(s.C[t][n], s.dy[t][c], G);
+      const float q = g * et * hh[t];
+      v1[t] = g * s.B[t][n];
+      v2[t] = a * q;
+      dA_acc = fmaf(dtv, q, dA_acc);
+      sm.red[0][t][c * N_STATE + n] = g * (dtv * to_f(s.x[t][c]));  // dB's
+      G = et * g;
+    }
+    // Reduce-scatter over the channel's 16 lanes, halves first: lane n ends
+    // with step n's sums.
+#pragma unroll
+    for (int m = N_STATE / 2; m >= 1; m /= 2) {
+      const bool upper = n & m;
+#pragma unroll
+      for (int j = 0; j < m; ++j) {
+        const float k1 = upper ? v1[m + j] : v1[j];
+        const float s1 = upper ? v1[j] : v1[m + j];
+        const float k2 = upper ? v2[m + j] : v2[j];
+        const float s2 = upper ? v2[j] : v2[m + j];
+        v1[j] = k1 + __shfl_xor_sync(0xffffffffu, s1, m);
+        v2[j] = k2 + __shfl_xor_sync(0xffffffffu, s2, m);
+      }
+    }
+    sm.sdx[n][c] = s.dt[n][c] * v1[0];
+    sm.sddt[n][c] = fmaf(to_f(s.x[n][c]), v1[0], v2[0]);
+    __syncthreads();
+    // dx and ddt rows: a thread an element of the (CHUNK, BWD_CH) tile
+    for (int i = threadIdx.x; i < CHUNK * BWD_CH; i += BWD_THREADS) {
+      const int t = i / BWD_CH, cc = i % BWD_CH, tt = t0 + t, dd = d0 + cc;
+      if (tt < S && dd < DI) {
+        from_f(sm.sdx[t][cc], dx[(row + tt) * DI + dd]);
+        ddt[(row + tt) * DI + dd] = sm.sddt[t][cc];
+      }
+    }
+    // dB's and dC's partials: a thread a (which, step, state), its sum over
+    // the block's channels in order
+    for (int i = threadIdx.x; i < 2 * CHUNK * N_STATE; i += BWD_THREADS) {
+      const int w = i / (CHUNK * N_STATE), r = i % (CHUNK * N_STATE);
+      const int t = r / N_STATE, nn = r % N_STATE;
+      float sum = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < BWD_CH; ++k) sum += sm.red[w][t][k * N_STATE + nn];
+      if (t0 + t < S)
+        part[(((static_cast<long long>(w) * gridDim.x + blockIdx.x) * B + b)
+                  * S + t0 + t) * N_STATE + nn] = sum;
+    }
+    __syncthreads();   // the stage buffer, red and the rows are reused
+  }
+  if (active) dA_part[hidx] = dA_acc;
+}
+
+// dB and dC: the blocks' partials summed over the channel blocks in order;
+// dA: the partials summed over the batch in order.
+__global__ void __launch_bounds__(256)
+ssm_scan_bwd_sums(const float* __restrict__ part,
+                  const float* __restrict__ dA_part, float* __restrict__ dB,
+                  float* __restrict__ dC, float* __restrict__ dA, int blocks,
+                  int B, int S, int DI) {
+  const long long nb = static_cast<long long>(B) * S * N_STATE;
+  const long long na = static_cast<long long>(DI) * N_STATE;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                     + threadIdx.x;
+       i < 2 * nb + na; i += stride) {
+    float sum = 0.f;
+    if (i < 2 * nb) {
+      const bool w = i >= nb;
+      const long long j = w ? i - nb : i;
+      const float* p = part + (w ? blocks * nb : 0) + j;
+      for (int k = 0; k < blocks; ++k) sum += p[k * nb];
+      (w ? dC : dB)[j] = sum;
+    } else {
+      const long long j = i - 2 * nb;
+      for (int k = 0; k < B; ++k) sum += dA_part[k * na + j];
+      dA[j] = sum;
+    }
+  }
+}
+
+template <typename X, bool VEC>
+cudaError_t launch_bwd(const void* x, const void* dt, const void* Bm,
+                       const void* Cm, const void* A, const void* dy,
+                       const void* dh_final, const void* hs, void* dx,
+                       void* ddt, float* part, float* dA_part, int B, int S,
+                       int DI, cudaStream_t st) {
+  constexpr size_t smem = sizeof(BwdSmem<X>);     // 88 KB in fp32
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssm_scan_bwd_kernel<X, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((DI + BWD_CH - 1) / BWD_CH, B);
+  ssm_scan_bwd_kernel<X, VEC><<<grid, BWD_THREADS, smem, st>>>(
+      static_cast<const X*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(Bm), static_cast<const float*>(Cm),
+      static_cast<const float*>(A), static_cast<const float*>(dy),
+      static_cast<const float*>(dh_final), static_cast<const float*>(hs),
+      static_cast<X*>(dx), static_cast<float*>(ddt), part, dA_part, B, S,
+      DI);
+  return cudaGetLastError();
+}
+
+template <typename X>
+cudaError_t dispatch_bwd(const void* x, const void* dt, const void* Bm,
+                         const void* Cm, const void* A, const void* dy,
+                         const void* dh_final, const void* hs, void* dx,
+                         void* ddt, void* dB, void* dC, void* dA, void* part,
+                         void* dA_part, int B, int S, int DI,
+                         cudaStream_t st) {
+  float* pt = static_cast<float*>(part);
+  float* pa = static_cast<float*>(dA_part);
+  if (B > 0) {
+    // staged reads in 16-byte pieces: aligned bases, rows of whole pieces
+    const void* ptrs[5] = {x, dt, dy, Bm, Cm};
+    bool vec = DI % (16 / sizeof(X)) == 0 && DI % 4 == 0;
+    for (const void* p : ptrs)
+      vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    const cudaError_t err =
+        vec ? launch_bwd<X, true>(x, dt, Bm, Cm, A, dy, dh_final, hs, dx,
+                                  ddt, pt, pa, B, S, DI, st)
+            : launch_bwd<X, false>(x, dt, Bm, Cm, A, dy, dh_final, hs, dx,
+                                   ddt, pt, pa, B, S, DI, st);
+    if (err != cudaSuccess) return err;
+  }
+  const long long total =
+      (2LL * B * S + static_cast<long long>(DI)) * N_STATE;
+  const long long want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  ssm_scan_bwd_sums<<<blocks, 256, 0, st>>>(
+      pt, pa, static_cast<float*>(dB), static_cast<float*>(dC),
+      static_cast<float*>(dA), (DI + BWD_CH - 1) / BWD_CH, B, S, DI);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x (B, S, DI) contiguous, dtype 0 = float32, 1 = bfloat16; dt (B, S, DI),
 // Bm and Cm (B, S, 16), A (DI, 16), all float32 contiguous; y (B, S, DI)
-// and h (B, DI, 16) float32 outputs; lanes (2 or 8) a channel.
-// Launches on `stream` and returns the launch's cudaError_t.
+// and h (B, DI, 16) float32 outputs; hs null, or a float32 output of
+// (B, ceil(S / 16), DI, 16) for the state entering each 16-step chunk (the
+// backward's input); lanes (2 or 8) a channel.  Launches on `stream` and
+// returns the launch's cudaError_t.
 extern "C" int windve_ssm_scan(const void* x, const void* dt, const void* Bm,
                                const void* Cm, const void* A, void* y,
-                               void* h, int dtype, int B, int S, int DI,
-                               int lanes, void* stream) {
+                               void* h, void* hs, int dtype, int B, int S,
+                               int DI, int lanes, void* stream) {
   if (B <= 0 || DI <= 0) return cudaSuccess;
   if (S < 0 || B > 65535) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(x, dt, Bm, Cm, A, y, h, B, S, DI, lanes, st);
+    return dispatch<float>(x, dt, Bm, Cm, A, y, h, hs, B, S, DI, lanes, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, dt, Bm, Cm, A, y, h, B, S, DI, lanes,
-                                   st);
+    return dispatch<__nv_bfloat16>(x, dt, Bm, Cm, A, y, h, hs, B, S, DI,
+                                   lanes, st);
+  return cudaErrorInvalidValue;
+}
+
+// Channels a block of windve_ssm_scan_bwd takes: its dB / dC workspace
+// holds 2 x ceil(DI / this) x B x S x 16 floats.
+extern "C" int windve_ssm_scan_bwd_channels() { return BWD_CH; }
+
+// The gradients of windve_ssm_scan's (y, h) given dy (B, S, DI) float32 and
+// dh_final (B, DI, 16) float32 or null (zero), from the forward's inputs and
+// its chunk states hs.  All contiguous; outputs dx (B, S, DI) in x's dtype,
+// ddt (B, S, DI), dB and dC (B, S, 16) and dA (DI, 16) float32; workspaces
+// part (2 x ceil(DI / 32) x B x S x 16 floats) and dA_part (B x DI x 16).
+// Two launches on `stream`; returns their cudaError_t.
+extern "C" int windve_ssm_scan_bwd(const void* x, const void* dt,
+                                   const void* Bm, const void* Cm,
+                                   const void* A, const void* dy,
+                                   const void* dh_final, const void* hs,
+                                   void* dx, void* ddt, void* dB, void* dC,
+                                   void* dA, void* part, void* dA_part,
+                                   int dtype, int B, int S, int DI,
+                                   void* stream) {
+  if (DI <= 0) return cudaSuccess;
+  if (B < 0 || S < 0 || B > 65535) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_bwd<float>(x, dt, Bm, Cm, A, dy, dh_final, hs, dx, ddt,
+                               dB, dC, dA, part, dA_part, B, S, DI, st);
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16>(x, dt, Bm, Cm, A, dy, dh_final, hs,
+                                       dx, ddt, dB, dC, dA, part, dA_part, B,
+                                       S, DI, st);
   return cudaErrorInvalidValue;
 }

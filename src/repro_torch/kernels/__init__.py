@@ -10,13 +10,12 @@
 #   ssm_scan/        -- the Mamba-1 selective scan (the LM's prefill)
 # build.py compiles the sources with nvcc on first use and loads them.
 #
-# Backward kernels exist for flash_attention and rmsnorm (their routers go
-# through a torch.autograd.Function under autograd).  Every other router
-# refuses autograd on the card (``refuse_grad``): it raises rather than
-# return an output cut from the graph.  CPU tensors go to the plain
+# Backward kernels exist for flash_attention, rmsnorm and ssm_scan (their
+# routers go through a torch.autograd.Function under autograd).  Every other
+# router refuses autograd on the card (``refuse_grad``): it raises rather
+# than return an output cut from the graph.  CPU tensors go to the plain
 # versions, which autograd differentiates.
 
-SSM_SCAN_BWD_ITEM = "ROADMAP.md Queue 1 item 9, the ssm_scan backward kernel"
 SERVING_BWD_ITEM = ("ROADMAP.md Queue 1 item 10, backward kernels of the "
                     "serving kernels")
 
@@ -43,14 +42,14 @@ def _wrappers() -> dict:
     from repro_torch.kernels.quant_matmul import (quant_matmul, quantize_rows,
                                                   w8a8_matmul)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
-    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
 
     return {"flash_attention": flash_attention, "pool_norm": pool_norm,
             "quant_matmul": quant_matmul, "quantize_rows": quantize_rows,
             "w8a8_matmul": w8a8_matmul, "rmsnorm": rmsnorm,
             "flash_decode": flash_decode, "ssm_scan": ssm_scan,
             "flash_attention_bwd": flash_attention_bwd,
-            "rmsnorm_bwd": rmsnorm_bwd}
+            "rmsnorm_bwd": rmsnorm_bwd, "ssm_scan_bwd": ssm_scan_bwd}
 
 
 def launch_counts() -> dict:

@@ -62,8 +62,13 @@ SIGNATURES = {
                            _P, _P, _P,                      # dx dscale workspace
                            _I, _I, _I, ctypes.c_float, _P], # dtype R D eps stream
     "windve_rmsnorm_bwd_blocks": [_I],                      # R
-    "windve_ssm_scan": [_P, _P, _P, _P, _P, _P, _P,         # x dt B C A y h
+    "windve_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _P,     # x dt B C A y h hs
                         _I, _I, _I, _I, _I, _P],            # dtype B S DI lanes stream
+    "windve_ssm_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,  # x dt B C A dy dh hs
+                            _P, _P, _P, _P, _P,             # dx ddt dB dC dA
+                            _P, _P,                         # part dA_part
+                            _I, _I, _I, _I, _P],            # dtype B S DI stream
+    "windve_ssm_scan_bwd_channels": [],
     "windve_flash_decode": [_P, _P, _P, _P, _P, _P,         # q k v kpos o lse
                             _I, _I, _I, _I, _I, _I, _I,     # 2 dtypes B KV G Sc hd
                             _L, _L, _L, _L, _L, _L,         # q, k strides

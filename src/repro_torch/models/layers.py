@@ -17,10 +17,10 @@ card, the plain version on the CPU:
 - the Mamba-1 prefill scan -> ``kernels.ssm_scan``, and in training
   (``mamba_forward``) too on the card.
 
-Under autograd the attention and RMSNorm routers carry gradients through
-their backward kernels; the other kernels raise on the card when asked
-for one (``kernels.refuse_grad``).  ``mamba_forward`` on CPU tensors takes
-the reference's scans: one step at a time, or by checkpointed chunks
+Under autograd the attention, RMSNorm and scan routers carry gradients
+through their backward kernels; the other kernels raise on the card when
+asked for one (``kernels.refuse_grad``).  ``mamba_forward`` on CPU tensors
+takes the reference's scans: one step at a time, or by checkpointed chunks
 (``mamba_scan_chunked``, the ``mamba_chunk`` flag).
 
 A float projection is ``torch.matmul``; an int8 one (a quantized tree,
@@ -585,10 +585,10 @@ def mamba_scan_chunked(xc, dt, Bm, Cm, A, chunk: int = 16):
 
 def default_mamba_scan(device=None):
     """The scan ``mamba_forward`` runs on ``device``: on the card the
-    ``ssm_scan`` kernel (which refuses autograd until its backward kernel
-    exists); on the CPU the reference's choice by the ``mamba_chunk`` flag,
-    the chunked scan, or ``ssm_scan``'s plain version, the sequential
-    scan."""
+    ``ssm_scan`` kernel (under autograd its forward, saving the chunk
+    states, and its backward kernel); on the CPU the reference's choice by
+    the ``mamba_chunk`` flag, the chunked scan, or ``ssm_scan``'s plain
+    version, the sequential scan."""
     if torch.device(device or "cpu").type == "cpu" \
             and perf_flags.FLAGS.mamba_chunk > 0:
         return functools.partial(mamba_scan_chunked,

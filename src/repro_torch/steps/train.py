@@ -7,8 +7,8 @@ chunk recomputed in the backward under ``torch.utils.checkpoint``), so
 than anything else in the step.
 
 On the card the step runs the port's hand-written kernels forward and
-backward: ``flash_attention`` and ``rmsnorm`` carry gradients through
-their backward kernels, and a kernel without one (``ssm_scan``) raises
+backward: ``flash_attention``, ``rmsnorm`` and ``ssm_scan`` carry
+gradients through their backward kernels, and a kernel without one raises
 under autograd rather than cut the graph.  CPU tensors take the plain
 versions throughout.  The step runs on one device: a mesh of more than one
 raises ``NotImplementedError``.

@@ -8,11 +8,11 @@ and no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_card.py
 
-Without a card every case skips.  Besides the forward kernels: the two
-backward kernels (attention and RMSNorm) against their plain backward
-versions, on views that are not 16-byte aligned, and bit for bit across two
-calls; the attention forward's ``lse``, both under autograd, and the other
-routers' refusal of autograd on the card.
+Without a card every case skips.  Besides the forward kernels: the three
+backward kernels (attention, RMSNorm and the selective scan) against their
+plain backward versions, on views that are not 16-byte aligned, and bit for
+bit across two calls; the attention forward's ``lse``, each under autograd,
+and the other routers' refusal of autograd on the card.
 """
 import numpy as np
 import pytest
@@ -701,6 +701,84 @@ def test_ssm_scan_reads_column_slices_of_one_projection():
     _close(h, h_ref, "float32")
 
 
+# the scan's backward: the forward's shapes, plus hymba-1.5b's training
+# shape (B 8 x S 512, d_inner 3200)
+SSM_BWD_CASES = SSM_CASES + [(8, 512, 3200, 16)]
+SCAN_GRADS = ("dx", "ddt", "dBm", "dCm", "dA")
+
+
+def _scan_grads_close(got, want, dtype):
+    """Each gradient within 1e-4 of its largest magnitude (fp32 on both
+    sides); dx of a bf16 x within one bf16 step there (2^-7 of it), as
+    both round it once from fp32."""
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        g, w = g.float(), w.float()
+        assert bool(torch.isfinite(g).all()), name
+        lim = 2.0 ** -7 if name == "dx" and dtype == "bfloat16" else 1e-4
+        assert (g - w).abs().max() <= lim * w.abs().max(), name
+
+
+@pytest.mark.parametrize("dh", [False, True], ids=["no_dh", "dh"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSM_BWD_CASES,
+                         ids=lambda c: "B{}S{}DI{}N{}".format(*c))
+def test_ssm_scan_backward_kernel_matches_plain(case, dtype, dh):
+    """The backward kernel from the forward kernel's chunk states against
+    the plain backward, and bit for bit equal across two calls."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd, ssm_scan_bwd_ref
+    from repro_torch.kernels.ssm_scan.ops import _forward
+
+    x, dt, Bm, Cm, A = _ssm_inputs(*case, dtype)
+    B, S, DI, N = case
+    rng = np.random.default_rng(11)
+    dy = _on_card(rng.standard_normal((B, S, DI), np.float32), "float32")
+    dhf = (_on_card(rng.standard_normal((B, DI, N), np.float32), "float32")
+           if dh else None)
+    states = _forward(x, dt, Bm, Cm, A, True)[2]
+    before = ssm_scan_bwd.launches
+    got = ssm_scan_bwd(x, dt, Bm, Cm, A, dy, dhf, states)
+    again = ssm_scan_bwd(x, dt, Bm, Cm, A, dy, dhf, states)
+    torch.cuda.synchronize()
+    assert ssm_scan_bwd.launches == before + 2
+    _scan_grads_close(got, ssm_scan_bwd_ref(x, dt, Bm, Cm, A, dy, dhf),
+                      dtype)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_autograd_runs_both_kernels(dtype):
+    """A tiny scan under autograd: the forward kernel once and the backward
+    kernel once, with autograd's gradient of the plain scan, also through
+    column slices of one projection (the model's B and C)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+
+    x, dt, _, _, A = _ssm_inputs(2, 37, 48, 16, dtype)
+    dbc = torch.randn((2, 37, 8 + 32), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+    rng = np.random.default_rng(12)
+    dy = _on_card(rng.standard_normal((2, 37, 48), np.float32), "float32")
+    dhf = _on_card(rng.standard_normal((2, 48, 16), np.float32), "float32")
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, dbc, A)]
+    before = ssm_scan.launches, ssm_scan_bwd.launches
+    y, h = ssm_scan(leaves[0], leaves[1], leaves[2][..., 8:24],
+                    leaves[2][..., 24:], leaves[3])
+    got = torch.autograd.grad((y, h), leaves, (dy, dhf))
+    torch.cuda.synchronize()
+    assert (ssm_scan.launches, ssm_scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = [t.detach().clone().requires_grad_() for t in (x, dt, dbc, A)]
+    yr, hr = ssm_scan_ref(plain[0], plain[1], plain[2][..., 8:24],
+                          plain[2][..., 24:], plain[3])
+    want = torch.autograd.grad((yr, hr), plain, (dy, dhf))
+    for name, g, w in zip(("dx", "ddt", "ddbc", "dA"), got, want):
+        assert g.dtype == w.dtype, name
+        g, w = g.float(), w.float()
+        lim = 2.0 ** -7 if name == "dx" and dtype == "bfloat16" else 1e-4
+        assert (g - w).abs().max() <= lim * w.abs().max(), name
+
+
 def _ring_kpos(Sc, pos):
     """Slot positions after writing positions 0..pos into a ring of Sc
     slots (slot = position % Sc); unwritten slots are -1."""
@@ -1307,10 +1385,6 @@ def test_routers_without_a_backward_refuse_autograd():
     for a gradient, instead of returning an output cut from the graph; under
     no_grad it runs."""
     dev = "cuda"
-    x = torch.randn(4, 8, 32, device=dev, requires_grad=True)
-    dt = torch.rand(4, 8, 32, device=dev)
-    Bm = torch.randn(4, 8, 16, device=dev)
-    A = -torch.rand(32, 16, device=dev)
     q = torch.randn(2, 2, 1, 32, device=dev, requires_grad=True)
     kc = torch.randn(2, 8, 2, 32, device=dev)
     kpos = torch.arange(8, dtype=torch.int32, device=dev)
@@ -1322,7 +1396,6 @@ def test_routers_without_a_backward_refuse_autograd():
     x8 = torch.randint(-127, 128, (6, 64), dtype=torch.int8, device=dev)
     xs = torch.rand(6, device=dev)
     calls = {
-        "ssm_scan": lambda: ssm_scan(x, dt, Bm, Bm, A),
         "flash_decode": lambda: flash_decode(q, kc, kc, kpos, 7),
         "pool_norm": lambda: pool_norm(h, m, "mean"),
         "quant_matmul": lambda: quant_matmul(xm, w8, ws),
