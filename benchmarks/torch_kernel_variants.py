@@ -49,6 +49,37 @@ QM, RN = "quant_matmul.cu", "rmsnorm.cu"
 FA, SS = "flash_attention.cu", "ssm_scan.cu"
 FAB = "flash_attention_bwd.cu"
 
+# the parent scan backward's reduce-scatter over n and its dx / ddt rows,
+# up to the barrier that follows them
+SSB_NSUMS_ROWS = """\
+    // Reduce-scatter over the channel's 16 lanes, halves first: lane n ends
+    // with step n's sums.
+#pragma unroll
+    for (int m = N_STATE / 2; m >= 1; m /= 2) {
+      const bool upper = n & m;
+#pragma unroll
+      for (int j = 0; j < m; ++j) {
+        const float k1 = upper ? v1[m + j] : v1[j];
+        const float s1 = upper ? v1[j] : v1[m + j];
+        const float k2 = upper ? v2[m + j] : v2[j];
+        const float s2 = upper ? v2[j] : v2[m + j];
+        v1[j] = k1 + __shfl_xor_sync(0xffffffffu, s1, m);
+        v2[j] = k2 + __shfl_xor_sync(0xffffffffu, s2, m);
+      }
+    }
+    sm.sdx[n][c] = s.dt[n][c] * v1[0];
+    sm.sddt[n][c] = fmaf(to_f(s.x[n][c]), v1[0], v2[0]);
+    __syncthreads();
+    // dx and ddt rows: a thread an element of the (CHUNK, BWD_CH) tile
+    for (int i = threadIdx.x; i < CHUNK * BWD_CH; i += BWD_THREADS) {
+      const int t = i / BWD_CH, cc = i % BWD_CH, tt = t0 + t, dd = d0 + cc;
+      if (tt < S && dd < DI) {
+        from_f(sm.sdx[t][cc], dx[(row + tt) * DI + dd]);
+        ddt[(row + tt) * DI + dd] = sm.sddt[t][cc];
+      }
+    }
+"""
+
 # name -> (source file, substitutions, from the parent tree)
 SETS = {
     "w8a8": {
@@ -102,41 +133,88 @@ SETS = {
     "ssm_scan": {
         "parent": (SS, [], True),
         "tree": (SS, [], False),
-        "chunk_8": (SS, [("constexpr int CHUNK = 16; ",
-                          "constexpr int CHUNK = 8; ")], False),
         # the accurate expf (range reduction on the FMA pipe) for ex2
         "expf": (SS, [("\n                        * LOG2E\n", "\n"),
                       ("ex2(dtv * a[j])", "expf(dtv * a[j])")], False),
     },
-    # the scan's backward: a block of BWD_CH channels x 16 states, 2 blocks
-    # an SM
+    # the scan's backward.  "parent" is the design of a thread a (channel,
+    # state), 512-thread blocks; the "ablate_" variants take one part out
+    # of the parent's kernel, so they compute wrong gradients by design and
+    # are timed only, to split its time.  Those of the parent are made from
+    # that design's text: under a later parent they are skipped.
     "ssm_scan_bwd": {
+        "parent": (SS, [], True),
         "tree": (SS, [], False),
-        # 16 channels a block (256 threads), 4 or 5 blocks an SM
+        # without the dB / dC partial pass over the block's channels
+        "ablate_partials": (SS, [(
+            "    for (int i = threadIdx.x; i < 2 * CHUNK * N_STATE; "
+            "i += BWD_THREADS) {",
+            "    for (int i = threadIdx.x; i < 0; i += BWD_THREADS) {")],
+                            True),
+        # without the reduce-scatter over n and the dx / ddt rows
+        "ablate_nsums_rows": (SS, [(
+            SSB_NSUMS_ROWS, "    __syncthreads();\n")], True),
+        # without the recompute's and the reverse step's stores of the
+        # terms over d
+        "ablate_red_stores": (SS, [
+            ("      sm.red[1][t][c * N_STATE + n] = s.dy[t][c] * hh[t + 1];"
+             "   // dC's\n", ""),
+            ("      sm.red[0][t][c * N_STATE + n] = g * (dtv * to_f(s.x[t]"
+             "[c]));  // dB's\n", "")], True),
+        # with two of the chunk's three barriers removed: a race
+        "ablate_two_barriers": (SS, [
+            ("    __syncthreads();\n    // dx and ddt rows",
+             "    // dx and ddt rows"),
+            ("    __syncthreads();   // the stage buffer, red and the rows "
+             "are reused\n", "")], True),
+        # the tree: 4 lanes a channel, 32 channels a block (128 threads),
+        # a chunk's h_{t-1} in registers, registers for 4 blocks an SM;
+        # each variant changes one of these
+        "min_blocks_3": (SS, [("constexpr int BWD_MIN_BLOCKS = 4;",
+                               "constexpr int BWD_MIN_BLOCKS = 3;")], False),
+        # h_{t-1} in 16-byte rows of shared memory (3 blocks an SM by it)
+        "hold_in_smem": (SS, [
+            ("  __align__(16) float4 h0[BWD_THREADS];\n",
+             "  __align__(16) float4 h0[BWD_THREADS];\n"
+             "  __align__(16) float4 hh[CHUNK][BWD_THREADS];\n"),
+            ("    float hr[CHUNK][NL];\n", ""),
+            ("#pragma unroll\n        for (int j = 0; j < NL; ++j) "
+             "hr[t][j] = h[j];\n",
+             "        sm.hh[t][tid] = make_float4(h[0], h[1], h[2], h[3]);\n"),
+            ("        float s1 = 0.f, s2 = 0.f;\n",
+             "        const float4 h4 = sm.hh[t][tid];\n"
+             "        float s1 = 0.f, s2 = 0.f;\n"),
+            ("const float q = ge * hr[t][j];",
+             "const float q = ge * at(h4, j);")], False),
         "ch16": (SS, [("constexpr int BWD_CH = 32;",
                        "constexpr int BWD_CH = 16;"),
-                      ("constexpr int BWD_MIN_BLOCKS = 2;",
-                       "constexpr int BWD_MIN_BLOCKS = 4;")], False),
-        "ch16_5_blocks": (SS, [("constexpr int BWD_CH = 32;",
-                                "constexpr int BWD_CH = 16;"),
-                               ("constexpr int BWD_MIN_BLOCKS = 2;",
-                                "constexpr int BWD_MIN_BLOCKS = 5;")],
-                          False),
-        # 24 channels a block (384 threads), 3 blocks an SM (1152 threads):
-        # hymba's training scan in 3 waves, not 4
-        "ch24": (SS, [("constexpr int BWD_CH = 32;",
-                       "constexpr int BWD_CH = 24;"),
-                      ("constexpr int BWD_MIN_BLOCKS = 2;",
-                       "constexpr int BWD_MIN_BLOCKS = 3;")], False),
-        # the recompute's exps held in registers for the reverse step (one
-        # ex2 a state and step, 16 registers more)
-        "hold_exp": (SS, [
-            ("    float hh[CHUNK + 1];", "    float e[CHUNK], hh[CHUNK + 1];"),
-            ("      hh[t + 1] = fmaf(hh[t], ex2(dtv * a2), dxv * s.B[t][n]);",
-             "      e[t] = ex2(dtv * a2);\n"
-             "      hh[t + 1] = fmaf(hh[t], e[t], dxv * s.B[t][n]);"),
-            ("      const float et = ex2(dtv * a2);",
-             "      const float et = e[t];")], False),
+                      ("constexpr int BWD_MIN_BLOCKS = 4;",
+                       "constexpr int BWD_MIN_BLOCKS = 8;")], False),
+        "ch64": (SS, [("constexpr int BWD_CH = 32;",
+                       "constexpr int BWD_CH = 64;"),
+                      ("constexpr int BWD_MIN_BLOCKS = 4;",
+                       "constexpr int BWD_MIN_BLOCKS = 2;")], False),
+        # the tree without one of its parts, timed only: the sums over the
+        # warp's channels, the sums over n, the reverse step's exps
+        "ablate_tree_channel_sums": (SS, [
+            ("__shfl_xor_sync(0xffffffffu, v[u * 4 + 2 + r], 16)",
+             "v[u * 4 + 2 + r]"),
+            ("__shfl_xor_sync(0xffffffffu, v[u * 4 + 1], 8)", "v[u * 4 + 1]"),
+            ("  reduce_scatter<GROUP / 2, 4, 4>(w, lane);\n", "")], False),
+        "ablate_tree_nsums": (SS, [(
+            "      reduce_scatter<GROUP, 2, 1>(sn, lane);\n", "")], False),
+        "ablate_tree_exp": (SS, [(
+            "          const float ge = g * ex2(dtv * a2[j]);",
+            "          const float ge = g * a2[j];")], False),
+        # without the block partials' global writes, or without the second
+        # kernel that sums them
+        "ablate_tree_flush": (SS, [("    if (t0 + t >= S) continue;",
+                                    "    if (t0 + t >= 0) continue;")],
+                              False),
+        "ablate_tree_sums": (SS, [(
+            "  ssm_scan_bwd_sums<<<blocks, 256, 0, st>>>(",
+            "  if (B < 0) ssm_scan_bwd_sums<<<blocks, 256, 0, st>>>(")],
+                             False),
     },
     # the tree: a row held in registers by 1 (K 1024) or 4 (K 4096) warps,
     # x / s as x * (1 / s) with one FMA correction, rounding by an add
@@ -214,6 +292,22 @@ SETS = {
 SSM_LANES = (2, 8)
 
 
+def variant_source(name: str, base: str, src: str, subs: list,
+                   from_parent: bool) -> str | None:
+    """``src`` of the tree at ``base`` with ``subs`` applied in order.  A
+    substitution whose text is missing stops the run for a variant of this
+    tree, and gives None for one of the parent's: that variant was written
+    for an older parent."""
+    text = open(os.path.join(base, CSRC, src)).read()
+    for old, new in subs:
+        if old not in text:
+            if from_parent:
+                return None
+            raise SystemExit(f"{name}: {old!r} not in {src}")
+        text = text.replace(old, new)
+    return text
+
+
 def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
     from repro_torch.kernels import build
 
@@ -221,11 +315,12 @@ def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
     procs = []
     for name, (src, subs, from_parent) in variants.items():
         base = parent if from_parent else ROOT
-        text = open(os.path.join(base, CSRC, src)).read()
-        for old, new in subs:
-            if old not in text:
-                raise SystemExit(f"{name}: {old!r} not in {src}")
-            text = text.replace(old, new)
+        text = variant_source(name, base, src, subs, from_parent)
+        if text is None:
+            print(json.dumps({"variant": name, "skipped":
+                              f"its text is not in {base}'s {src}"}),
+                  flush=True)
+            continue
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
@@ -254,6 +349,65 @@ def build_variants(variants: dict, parent: str, out_dir: str) -> dict:
                   flush=True)
             libs[name] = lib
     return libs
+
+
+SASS_OPS = ("LDS", "STS", "SHFL", "BAR", "MUFU", "FFMA", "FMUL", "FADD",
+            "FSEL", "SEL", "LDG", "STG", "LDGSTS")
+
+
+def sass_counts(so: str, kernel: str) -> list:
+    """Static SASS instruction counts (``cuobjdump -sass``) of every
+    function in ``so`` whose name contains ``kernel``: in the whole
+    function and in its outermost loop (the span of its longest backward
+    branch), by opcode (LDS.U.128 counts as LDS)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                      r"([^;]*);")
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = [] if kernel in name else None
+            continue
+        m = insn.search(line)
+        if name is not None and funcs.get(name) is not None and m:
+            funcs[name].append((int(m.group(1), 16), m.group(3),
+                                m.group(4)))
+    out = []
+    for name, ins in funcs.items():
+        if not ins:
+            continue
+        loop = None                          # the longest backward branch
+        for addr, op, rest in ins:
+            tgt = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if tgt is None or int(tgt.group(1), 16) >= addr:
+                continue
+            span = (int(tgt.group(1), 16), addr)
+            if loop is None or span[1] - span[0] > loop[1] - loop[0]:
+                loop = span
+
+        def count(span):
+            c = {op: 0 for op in SASS_OPS}
+            c["all"] = 0
+            for addr, op, _ in ins:
+                if span[0] <= addr <= span[1]:
+                    c["all"] += 1
+                    base = op.split(".")[0]
+                    if base in c:
+                        c[base] += 1
+            return c
+
+        out.append({"function": name,
+                    "whole": count((ins[0][0], ins[-1][0])),
+                    "loop": count(loop) if loop else None,
+                    "loop_bytes": list(loop) if loop else None})
+    return out
 
 
 def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
@@ -472,11 +626,14 @@ def ssm_scan_bwd_shapes(libs: dict) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # hymba-1.5b's training scan (B 8 x S 512, d_inner 3200) in both x
-    # dtypes, falcon-mamba-7b's d_inner 8192 and the 1100-token prompt
+    # dtypes, falcon-mamba-7b's d_inner 8192, the 1100-token prompt, and
+    # chip_smoke's two small shapes (S and DI off the chunks and blocks)
     for B, S, DI, dt in ((8, 512, 3200, torch.bfloat16),
                          (8, 512, 3200, torch.float32),
                          (4, 512, 8192, torch.bfloat16),
-                         (2, 1100, 3200, torch.bfloat16)):
+                         (2, 1100, 3200, torch.bfloat16),
+                         (3, 33, 130, torch.bfloat16),
+                         (1, 1, 7, torch.bfloat16)):
         N = 16
         rng = np.random.default_rng(6)
 
@@ -500,34 +657,43 @@ def ssm_scan_bwd_shapes(libs: dict) -> None:
         if err:
             raise RuntimeError(f"forward: CUDA error {err}")
         want = ssm_scan_bwd_ref(x, dtv, Bm, Cm, A, dy)
-        outs = [torch.empty_like(x), torch.empty((B, S, DI), device="cuda"),
-                torch.empty((B, S, N), device="cuda"),
-                torch.empty((B, S, N), device="cuda"),
-                torch.empty((DI, N), device="cuda")]
         dA_part = torch.empty((B, DI, N), device="cuda")
-        parts = {}
+        # each variant its own outputs, NaN until it writes them, so that
+        # one that leaves an output unwritten does not pass on another's
+        outs, parts, last = {}, {}, []
         for name, lib in libs.items():
+            outs[name] = [torch.full(w.shape, float("nan"), dtype=w.dtype,
+                                     device="cuda") for w in want]
             blocks = -(-DI // lib.windve_ssm_scan_bwd_channels())
             parts[name] = torch.empty((2, blocks, B, S, N), device="cuda")
 
         def run(name):
             lib, part = libs[name], parts[name]
-            return lambda: lib.windve_ssm_scan_bwd(
-                x.data_ptr(), dtv.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                A.data_ptr(), dy.data_ptr(), None, hs.data_ptr(),
-                *(o.data_ptr() for o in outs), part.data_ptr(),
-                dA_part.data_ptr(), code, B, S, DI, stream)
+
+            def fn():
+                last[:] = [name]
+                return lib.windve_ssm_scan_bwd(
+                    x.data_ptr(), dtv.data_ptr(), Bm.data_ptr(),
+                    Cm.data_ptr(), A.data_ptr(), dy.data_ptr(), None,
+                    hs.data_ptr(), *(o.data_ptr() for o in outs[name]),
+                    part.data_ptr(), dA_part.data_ptr(), code, B, S, DI,
+                    stream)
+            return fn
 
         def close():
-            for i, (g, w) in enumerate(zip(outs, want)):
+            for i, (g, w) in enumerate(zip(outs[last[0]], want)):
                 g, w = g.float(), w.float()
                 lim = 2.0 ** -7 if i == 0 and dt == torch.bfloat16 else 1e-4
-                if (g - w).abs().max() > lim * w.abs().max():
+                if not bool(torch.isfinite(g).all()) \
+                        or (g - w).abs().max() > lim * w.abs().max():
                     return False
             return True
 
         res = in_turns({name: run(name) for name in libs}, lambda fn: fn(),
                        close)
+        for name in res:
+            if name.startswith("ablate_"):
+                res[name]["wrong_by_design"] = True
         print(json.dumps({"kernel": "ssm_scan_bwd", "B": B, "S": S,
                           "DI": DI, "x_dtype": str(dt), **res}), flush=True)
 
@@ -691,6 +857,12 @@ def main() -> int:
     ap.add_argument("--parent", required=True,
                     help="the parent commit's tree, unpacked (git archive)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "variants"))
+    ap.add_argument("--only", metavar="NAMES",
+                    help="comma-separated variants of the set to build and "
+                         "time (default: all)")
+    ap.add_argument("--sass", metavar="KERNEL",
+                    help="also print static SASS instruction counts of each "
+                         "variant's functions whose name contains KERNEL")
     args = ap.parse_args()
 
     import torch
@@ -698,8 +870,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 2
-    libs = build_variants(SETS[args.set], args.parent,
-                          os.path.join(args.out, args.set))
+    out_dir = os.path.join(args.out, args.set)
+    variants = SETS[args.set]
+    if args.only:
+        variants = {k: variants[k] for k in args.only.split(",")}
+    libs = build_variants(variants, args.parent, out_dir)
+    if args.sass:
+        for name in libs:
+            for row in sass_counts(os.path.join(out_dir, f"{name}.so"),
+                                   args.sass):
+                print(json.dumps({"sass": name, **row}), flush=True)
     {"w8a8": w8a8_shapes, "rmsnorm": rmsnorm_shapes,
      "attention_fp32": attention_fp32_shapes,
      "ssm_scan": ssm_scan_shapes,

@@ -1,8 +1,9 @@
 // PTX helpers shared by the attention kernels (flash_attention.cu and
-// flash_attention_bwd.cu): shared-memory addresses, cp.async copies,
-// ldmatrix, the bf16 mma.sync.m16n8k16 with fp32 accumulators, the SFU's
-// exp2, bf16 packing, and the exact three-term bf16 split of an fp32 value
-// with the order of its six significant products.
+// flash_attention_bwd.cu) and the selective scan (ssm_scan.cu):
+// shared-memory addresses, cp.async copies, ldmatrix, the bf16
+// mma.sync.m16n8k16 with fp32 accumulators, the SFU's exp2, fp32 from an
+// element, bf16 packing, and the exact three-term bf16 split of an fp32
+// value with the order of its six significant products.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +65,9 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // two fp32 values rounded to bf16, lo in the low half
 __device__ __forceinline__ unsigned pack(float lo, float hi) {

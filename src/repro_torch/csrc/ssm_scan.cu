@@ -61,34 +61,46 @@
 // kernel forms it twice, in the recompute and in the reverse step) and
 // about 19 fp32 flops; at hymba-1.5b's training shape (B 8, S 512, DI 3200)
 // 210 M exps, 0.050 ms on the SFU, 0.060 ms of flops, and 0.079 ms for the
-// bytes (bf16 x; the forward's chunk states, 52 MB, included).  As written
-// it takes about 13 times that: its variants in blocks an SM, channels a
-// block and exps formed once or twice all time alike, so neither occupancy
-// nor the SFU sets it.  Suspects, not yet measured: about nine shared-memory
-// reads and two stores a thread and step, and three barriers a chunk.
+// bytes (bf16 x; the forward's chunk states, 52 MB, included).  The kernel
+// issues about 122 instructions a warp and step of 128 (channel, state)
+// items, and its time follows that issue, not the bytes or the SFU: taking
+// out its shuffle sums over n and over channels takes a quarter of it.
 //   - The forward, when asked (hs not null), writes the state entering each
 //     CHUNK-step chunk, (B, ceil(S / CHUNK), DI, N) fp32.  The backward walks
 //     the chunks in reverse; in each it recomputes the chunk's states from
-//     the saved one, as the forward formed them, into registers, then runs
-//     the reverse recurrence.  h_{t-1} is never formed as h_t / e_t: e_t
-//     underflows to 0 at large |A| dt.
-//   - A thread holds one (channel, state): 32 channels x 16 states a block
-//     of 512 threads, so a chunk's 16 states fit its registers.
-//     x, dt, dy, B and C are staged a chunk ahead by cp.async, as in the
-//     forward.  The sums over n (dx, ddt) are a reduce-scatter over a
-//     channel's 16 lanes once a chunk, which leaves lane n with step n's
-//     sums; dx and ddt rows are written through shared memory.
-//   - The sums over d (dB, dC) go through shared memory: each block sums its
-//     32 channels in order and writes a partial per (block, b, t, n); dA's
-//     partials are per (b, d, n).  A second kernel sums the partials over
-//     the blocks, and dA's over the batch, in a fixed order: no float
-//     atomics, so two calls give the same bits.
+//     the saved one, as the forward formed them, then runs the reverse
+//     recurrence.  h_{t-1} is never formed as h_t / e_t: e_t underflows to
+//     0 at large |A| dt.
+//   - 4 lanes a channel, 4 states a lane, 32 channels a block of 128
+//     threads: a lane runs 4 independent recurrences and holds its states'
+//     h_{t-1} for the chunk's 16 steps in 64 registers.  Registers are sized
+//     for 4 blocks an SM (128 a thread).
+//   - x, dt and dy are staged time-major, a channel's row of the chunk's
+//     steps, so that a lane reads 4 steps of its channel in one 16-byte
+//     load; B and C as (step, state) rows in 4 orders (below).  The next
+//     chunk's pieces are read into registers half-way through the reverse
+//     and written to the other stage buffer after it: one barrier a chunk.
+//   - Every 4 steps, inside the step loops: the sums over n (dx, ddt) by a
+//     reduce-scatter over the channel's 4 lanes, which leaves lane l with
+//     step l's two sums; the terms of dB and dC by a reduce-scatter over the
+//     warp's 8 channels (lane bits 4, 3, 2).  A lane's 4 states sit in its
+//     slots permuted by its lane bits 4 and 3, so partners over those bits
+//     hold each state in the slot the other sends and two of the three
+//     rounds need no selects.  The warps' sums are added in warp order a
+//     chunk later, after the barrier, into a per-block partial.
+//   - A second kernel sums the partials over the blocks, and dA's per-row
+//     partials over the batch, in a fixed order: no float atomics, so two
+//     calls give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
+
+using namespace ptx;
 
 constexpr int THREADS = 128;
 constexpr int N_STATE = 16;        // the state size of every Mamba-1 config
@@ -107,38 +119,9 @@ struct Lanes {
   static constexpr int YPITCH = CH + 32 / LANES;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void set_zero(float& v) { v = 0.f; }
 __device__ __forceinline__ void set_zero(__nv_bfloat16& v) {
   v = __float2bfloat16_rn(0.f);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// 2^x, the SFU's approximation (relative error 2^-22; 2^0 is exactly 1)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 template <typename X, int CH>
@@ -396,80 +379,221 @@ cudaError_t dispatch(const void* x, const void* dt, const void* Bm,
 // The backward
 // ---------------------------------------------------------------------------
 
+constexpr int BWD_LANES = 4;                     // lanes a channel
+constexpr int BWD_NL = N_STATE / BWD_LANES;      // states a lane
 constexpr int BWD_CH = 32;                       // channels a block
-constexpr int BWD_THREADS = BWD_CH * N_STATE;    // a thread a (channel, state)
-constexpr int BWD_MIN_BLOCKS = 2;                // blocks an SM, for registers
-// a step's row of (channel, state) partials, padded so that the reducing
-// threads of two steps fall on different banks
-constexpr int RED_PITCH = BWD_CH * N_STATE + 16;
-constexpr int OUT_PITCH = BWD_CH + 1;            // dx and ddt rows
+constexpr int BWD_THREADS = BWD_CH * BWD_LANES;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+// blocks an SM the registers are sized for: 128 registers a thread
+constexpr int BWD_MIN_BLOCKS = 4;
+constexpr int GROUP = 4;                         // steps a reduce-scatter takes
+constexpr int TM_PITCH = CHUNK + 4;              // a channel's row of steps
+static_assert(BWD_LANES == 4 && BWD_NL == 4 && GROUP == 4 && CHUNK % GROUP == 0,
+              "a lane's 4 states as one 16-byte piece; 4 steps a group");
+static_assert(CHUNK * BWD_CH / 4 == BWD_THREADS,
+              "a thread a 4-channel piece of each tile");
 
 __device__ __forceinline__ void from_f(float v, float& out) { out = v; }
 __device__ __forceinline__ void from_f(float v, __nv_bfloat16& out) {
   out = __float2bfloat16_rn(v);
 }
 
-template <typename X>
+// element i (a constant after unrolling) of a float4
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
 struct BwdStage {
-  __align__(16) X x[CHUNK][BWD_CH];
-  __align__(16) float dt[CHUNK][BWD_CH];
-  __align__(16) float dy[CHUNK][BWD_CH];
-  __align__(16) float B[CHUNK][N_STATE];
-  __align__(16) float C[CHUNK][N_STATE];
+  // x (as fp32), dt and dy time-major: a channel's row of the chunk's steps,
+  // so that a lane reads four steps in one 16-byte load
+  __align__(16) float x[BWD_CH][TM_PITCH];
+  __align__(16) float dt[BWD_CH][TM_PITCH];
+  __align__(16) float dy[BWD_CH][TM_PITCH];
+  // B and C rows in 4 orders: in copy p each 4-state piece is permuted,
+  // state 4i + (r ^ p) at 4i + r, the order of a lane whose states are
+  // permuted by p (warp_channel_sums)
+  __align__(16) float B[4][CHUNK][N_STATE];
+  __align__(16) float C[4][CHUNK][N_STATE];
 };
 
-template <typename X>
 struct BwdSmem {
-  BwdStage<X> st[2];
-  float red[2][CHUNK][RED_PITCH];   // dB's, then dC's (step, channel, state)
-  float sdx[CHUNK][OUT_PITCH];
-  float sddt[CHUNK][OUT_PITCH];
+  BwdStage st[2];
+  // a chunk's sums over each warp's channels of dB's (0) and dC's (1)
+  // terms, by (step, state); two chunks' worth, summed over the warps a
+  // chunk later
+  __align__(16) float red[2][BWD_WARPS][2][CHUNK][N_STATE];
+  // the state entering the next chunk, a thread's slots, copied from the
+  // forward's saved states a half-chunk ahead
+  __align__(16) float4 h0[BWD_THREADS];
 };
 
-// Piece i of a (CHUNK, CH) tile of a (rows, DI) stream: steps [t0, t0 +
-// CHUNK) of channels [d0, d0 + CH), zeros at or past step S and past DI.
-template <typename E, int CH, bool VEC>
-__device__ __forceinline__ void stage_tile(E (*dst)[CH], const E* src,
-                                           long long row, int S, int DI,
-                                           int d0, int t0, int i) {
-  constexpr int P = 16 / sizeof(E), R = CH / P;
-  const int t = i / R, c = (i % R) * P, tt = t0 + t, d = d0 + c;
-  const E* s = src + (row + tt) * DI + d;
-  if (VEC || tt >= S || d + P <= DI) {
-    copy16<E, VEC>(&dst[t][c], s, tt < S && d < DI);
+// 4 elements of x as one load: 16 bytes of fp32, 8 of bf16
+template <typename X> struct XWord { using T = uint4; };
+template <> struct XWord<__nv_bfloat16> { using T = uint2; };
+
+// A thread's pieces of 4 channels of a chunk's (CHUNK, BWD_CH) tiles of dt,
+// dy and x, and of its B and C rows, read from global memory into
+// registers and written into shared memory a chunk later.
+template <typename X>
+struct BwdPieces {
+  static constexpr int BCN = 2 * CHUNK * N_STATE / 4;   // B and C pieces
+  static constexpr int BCP = (BCN + BWD_THREADS - 1) / BWD_THREADS;
+  union XPiece {                  // x's piece held as its bytes
+    typename XWord<X>::T u;
+    X e[4];
+  };
+  float dt[4], dy[4];
+  XPiece x;
+  float bc[BCP][4];
+};
+
+// 4 floats of a row from src, zeros past the first n: one 16-byte load
+// when VEC and all n are there, element loads otherwise.
+template <bool VEC>
+__device__ __forceinline__ void read_piece(float (&v)[4], const float* src,
+                                           int n) {
+  if (VEC && n >= 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
   } else {
-    for (int e = 0; e < P; ++e) {
-      if (d + e < DI) dst[t][c + e] = s[e];
-      else set_zero(dst[t][c + e]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < n ? src[e] : 0.f;
+  }
+}
+
+// x's piece: its bytes in one load when VEC and all n are there
+template <bool VEC, typename Piece, typename X>
+__device__ __forceinline__ void read_piece(Piece& v, const X* src, int n) {
+  if (VEC && n >= 4) {
+    v.u = *reinterpret_cast<const decltype(v.u)*>(src);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < n) v.e[e] = src[e];
+      else set_zero(v.e[e]);
     }
   }
 }
 
+// Piece tid of each tile: step tid % CHUNK, 4 channels from (tid / CHUNK)
+// * 4.  A warp's pieces cover 16 steps of 8 channels, so the time-major
+// stores below fall on 32 distinct banks (TM_PITCH = 20).  Then pieces tid
+// (+ BWD_THREADS) of the chunk's B rows and C rows, zeros at or past S.
 template <typename X, bool VEC>
-__device__ __forceinline__ void stage_bwd(BwdStage<X>& s, const X* x,
-                                          const float* dt, const float* dy,
-                                          const float* Bm, const float* Cm,
-                                          long long row, int S, int DI,
-                                          int d0, int t0) {
-  constexpr int NX = CHUNK * BWD_CH * static_cast<int>(sizeof(X)) / 16;
-  constexpr int NF = CHUNK * BWD_CH / 4, NN = CHUNK * N_STATE / 4;
-  for (int i = threadIdx.x; i < NX + 2 * NF + 2 * NN; i += BWD_THREADS) {
-    int j = i;
-    if (j < NX) {
-      stage_tile<X, BWD_CH, VEC>(s.x, x, row, S, DI, d0, t0, j);
-    } else if ((j -= NX) < 2 * NF) {
-      const bool w = j >= NF;
-      stage_tile<float, BWD_CH, VEC>(w ? s.dy : s.dt, w ? dy : dt, row, S,
-                                     DI, d0, t0, w ? j - NF : j);
-    } else {
-      j -= 2 * NF;
-      const bool w = j >= NN;
-      if (w) j -= NN;
-      const int t = j / (N_STATE / 4), c = (j % (N_STATE / 4)) * 4;
-      const int tt = t0 + t;
-      copy16<float, VEC>(w ? &s.C[t][c] : &s.B[t][c],
-                         (w ? Cm : Bm) + (row + tt) * N_STATE + c, tt < S);
+__device__ __forceinline__ void read_pieces(BwdPieces<X>& p, const X* x,
+                                            const float* dt, const float* dy,
+                                            const float* Bm, const float* Cm,
+                                            long long row, int S, int DI,
+                                            int d0, int t0, int tid) {
+  using P = BwdPieces<X>;
+  const int t = tid % CHUNK, tt = t0 + t;
+  const long long off = (row + tt) * DI;
+  const int d = d0 + (tid / CHUNK) * 4;
+  const int n = tt < S ? DI - d : 0;
+  read_piece<VEC>(p.dt, dt + off + d, n);
+  read_piece<VEC>(p.dy, dy + off + d, n);
+  read_piece<VEC>(p.x, x + off + d, n);
+#pragma unroll
+  for (int m = 0; m < P::BCP; ++m) {
+    const int i = tid + m * BWD_THREADS;
+    const int j = i % (P::BCN / 2), tb = t0 + j / (N_STATE / 4);
+    if (i < P::BCN)
+      read_piece<VEC>(p.bc[m], (i < P::BCN / 2 ? Bm : Cm)
+                                   + (row + tb) * N_STATE
+                                   + (j % (N_STATE / 4)) * 4,
+                      tb < S ? 4 : 0);
+  }
+}
+
+template <typename X>
+__device__ __forceinline__ void write_pieces(BwdStage& s,
+                                             const BwdPieces<X>& p, int tid) {
+  using P = BwdPieces<X>;
+  const int t = tid % CHUNK, c = (tid / CHUNK) * 4;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    s.dt[c + e][t] = p.dt[e];
+    s.dy[c + e][t] = p.dy[e];
+    s.x[c + e][t] = to_f(p.x.e[e]);
+  }
+  // B and C in their 4 orders
+#pragma unroll
+  for (int m = 0; m < P::BCP; ++m) {
+    const int i = tid + m * BWD_THREADS;
+    const int j = i % (P::BCN / 2), tb = j / (N_STATE / 4);
+    const int n = (j % (N_STATE / 4)) * 4;
+    if (i < P::BCN) {
+      float (&dst)[4][CHUNK][N_STATE] = i < P::BCN / 2 ? s.B : s.C;
+      const float* v = p.bc[m];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<float4*>(&dst[q][tb][n]) =
+            make_float4(v[q], v[1 ^ q], v[2 ^ q], v[3 ^ q]);
     }
+  }
+}
+
+// One round of a reduce-scatter over the lanes that differ in lane bit M,
+// then the rounds of M / 2 down to LO.  v holds 2 * HALF values; the lane
+// with bit M set keeps the upper half, adds its partner's upper half to it
+// and sends its lower half.  After the last round v[0 .. HALF_last) hold
+// the sums of the values at flat indices from the sum over rounds of (bit
+// set ? HALF : 0).
+template <int HALF, int M, int LO, int V>
+__device__ __forceinline__ void reduce_scatter(float (&v)[V], int lane) {
+  const bool upper = lane & M;
+#pragma unroll
+  for (int j = 0; j < HALF; ++j) {
+    const float keep = upper ? v[HALF + j] : v[j];
+    const float send = upper ? v[j] : v[HALF + j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+  if constexpr (M / 2 >= LO) reduce_scatter<HALF / 2, M / 2, LO>(v, lane);
+}
+
+// A group's terms of dB or dC, v[u * 4 + r] for step u and the lane's
+// slot r, summed over the warp's 8 channels (lane bits 4, 3, 2).  Slot r
+// holds state n0 + (r ^ p) with p = lane bits 4 and 3, so partners over
+// bits 4 and 3 hold each state in the slot the other sends, and those two
+// rounds need no selects: each lane keeps slots 0 and 1, then slot 0, its
+// state n = n0 + p.  The round over bit 2 splits the steps; the lane ends
+// with steps 2 * (bit 2) + {0, 1} of its state, written to the warp's row.
+__device__ __forceinline__ void warp_channel_sums(
+    float (&v)[GROUP * BWD_NL], float (&out)[CHUNK][N_STATE], int k, int n,
+    int lane) {
+#pragma unroll
+  for (int u = 0; u < GROUP; ++u) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      v[u * 4 + r] += __shfl_xor_sync(0xffffffffu, v[u * 4 + 2 + r], 16);
+    v[u * 4] += __shfl_xor_sync(0xffffffffu, v[u * 4 + 1], 8);
+  }
+  float w[GROUP] = {v[0], v[4], v[8], v[12]};
+  reduce_scatter<GROUP / 2, 4, 4>(w, lane);
+  const int t = k * GROUP + 2 * ((lane >> 2) & 1);
+  out[t][n] = w[0];
+  out[t + 1][n] = w[1];
+}
+
+// The block's partial of a chunk's dB and dC: each warp's sums added in
+// warp order, a 16-byte piece a thread.
+__device__ __forceinline__ void flush_partials(
+    const float (&red)[BWD_WARPS][2][CHUNK][N_STATE], float* part, int B,
+    int S, int b, int t0, int tid) {
+  constexpr int Q = CHUNK * N_STATE / 4;         // pieces of dB (and of dC)
+  for (int i = tid; i < 2 * Q; i += BWD_THREADS) {
+    const int w = i / Q, t = (i % Q) / (N_STATE / 4);
+    const int n = (i % (N_STATE / 4)) * 4;
+    if (t0 + t >= S) continue;
+    float4 sum = *reinterpret_cast<const float4*>(&red[0][w][t][n]);
+#pragma unroll
+    for (int k = 1; k < BWD_WARPS; ++k) {
+      const float4 p = *reinterpret_cast<const float4*>(&red[k][w][t][n]);
+      sum.x += p.x, sum.y += p.y, sum.z += p.z, sum.w += p.w;
+    }
+    *reinterpret_cast<float4*>(
+        part + ((static_cast<long long>(w * gridDim.x + blockIdx.x) * B + b)
+                    * S + t0 + t) * N_STATE + n) = sum;
   }
 }
 
@@ -482,142 +606,170 @@ ssm_scan_bwd_kernel(const X* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ hs, X* __restrict__ dx,
                     float* __restrict__ ddt, float* __restrict__ part,
                     float* __restrict__ dA_part, int B, int S, int DI) {
+  constexpr int NL = BWD_NL;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdSmem<X>& sm = *reinterpret_cast<BwdSmem<X>*>(smem_raw);
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, d0 = blockIdx.x * BWD_CH;
-  const int c = threadIdx.x / N_STATE, n = threadIdx.x % N_STATE;
+  const int c = tid / BWD_LANES, sub = tid % BWD_LANES, n0 = sub * NL;
+  // slot j of the lane's states holds state n0 + (j ^ p) (warp_channel_sums)
+  const int p = (lane >> 3) & 3;
   const int d = d0 + c;
   const bool active = d < DI;
   const long long row = static_cast<long long>(b) * S;
-  const long long hidx = (static_cast<long long>(b) * DI + d) * N_STATE + n;
-  const float a = active ? A[static_cast<long long>(d) * N_STATE + n] : 0.f;
-  const float a2 = a * LOG2E;
+  const long long hidx = (static_cast<long long>(b) * DI + d) * N_STATE + n0;
   // G = e_{t+1} g_{t+1}: the gradient h_t takes from later steps
-  float G = active && dh_final != nullptr ? dh_final[hidx] : 0.f;
-  float dA_acc = 0.f;
+  float a[NL], a2[NL], G[NL], dA[NL];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    a[j] = active ? A[static_cast<long long>(d) * N_STATE + n0 + (j ^ p)]
+                  : 0.f;
+    a2[j] = a[j] * LOG2E;
+    G[j] = active && dh_final != nullptr ? dh_final[hidx + (j ^ p)] : 0.f;
+    dA[j] = 0.f;
+  }
 
   const int chunks = (S + CHUNK - 1) / CHUNK;
-  // the state entering chunk ci, as the forward saved it
+  // the state entering chunk ci, as the forward saved it, into the
+  // thread's slots of sm.h0 by 4-byte cp.async copies
   auto saved_state = [&](int ci) {
-    return active ? hs[((static_cast<long long>(b) * chunks + ci) * DI + d)
-                           * N_STATE + n]
-                  : 0.f;
+    const float* src = hs + ((static_cast<long long>(b) * chunks + ci) * DI
+                             + d) * N_STATE + n0;
+    float* dst = reinterpret_cast<float*>(&sm.h0[tid]);
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      if (active) cp_async4(dst + j, src + (j ^ p));
+      else dst[j] = 0.f;
+    }
+    cp_async_commit();
   };
-  float h_next = chunks > 0 ? saved_state(chunks - 1) : 0.f;
-  if (chunks > 0)
-    stage_bwd<X, VEC>(sm.st[(chunks - 1) & 1], x, dt, dy, Bm, Cm, row, S, DI,
-                      d0, (chunks - 1) * CHUNK);
-  cp_async_commit();
+  BwdPieces<X> pc;
+  if (chunks > 0) {
+    const int t0 = (chunks - 1) * CHUNK;
+    read_pieces<X, VEC>(pc, x, dt, dy, Bm, Cm, row, S, DI, d0, t0, tid);
+    write_pieces(sm.st[(chunks - 1) & 1], pc, tid);
+    saved_state(chunks - 1);
+  }
   for (int ci = chunks - 1; ci >= 0; --ci) {
     const int t0 = ci * CHUNK;
-    const float h0 = h_next;                 // loaded a chunk ahead
-    if (ci > 0) {      // the buffer chunk ci - 1 takes was freed at ci + 1
-      h_next = saved_state(ci - 1);
-      stage_bwd<X, VEC>(sm.st[(ci - 1) & 1], x, dt, dy, Bm, Cm, row, S, DI,
-                        d0, t0 - CHUNK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    // The one barrier a chunk: chunk ci's tiles are staged, chunk ci + 1's
+    // warp sums written, and chunk ci + 1's stage buffer is free.
+    cp_async_wait<0>();
     __syncthreads();
-    const BwdStage<X>& s = sm.st[ci & 1];
-    // The chunk's states, formed as the forward forms them: hh[t] = h_{t-1}.
+    const BwdStage& s = sm.st[ci & 1];
+    if (ci + 1 < chunks)
+      flush_partials(sm.red[(ci + 1) & 1], part, B, S, b, t0 + CHUNK, tid);
+    float (&red)[BWD_WARPS][2][CHUNK][N_STATE] = sm.red[ci & 1];
+
+    // The chunk's states, formed as the forward forms them: hr[t] = h_{t-1}.
     // Steps past S were staged as zeros: e = 1 and nothing added, so h, and
     // in the reverse g, pass through them unchanged.
-    float hh[CHUNK + 1];
-    hh[0] = h0;
+    float hr[CHUNK][NL];
+    const float4 h04 = sm.h0[tid];
+    float h[NL] = {h04.x, h04.y, h04.z, h04.w};
 #pragma unroll
-    for (int t = 0; t < CHUNK; ++t) {
-      const float dtv = s.dt[t][c];
-      const float dxv = dtv * to_f(s.x[t][c]);
-      hh[t + 1] = fmaf(hh[t], ex2(dtv * a2), dxv * s.B[t][n]);
-      sm.red[1][t][c * N_STATE + n] = s.dy[t][c] * hh[t + 1];   // dC's
-    }
-    // The reverse recurrence, each step's exp formed again (holding the
-    // recompute's took 16 more registers and timed the same); v1, v2: the
-    // lane's terms of sum_n g B and sum_n A q at each step.
-    float v1[CHUNK], v2[CHUNK];
+    for (int k = 0; k < CHUNK / GROUP; ++k) {
+      const float4 dt4 = *reinterpret_cast<const float4*>(&s.dt[c][k * GROUP]);
+      const float4 x4 = *reinterpret_cast<const float4*>(&s.x[c][k * GROUP]);
+      const float4 dy4 = *reinterpret_cast<const float4*>(&s.dy[c][k * GROUP]);
+      float v[GROUP * NL];                       // dC's terms dy_t h_t
 #pragma unroll
-    for (int t = CHUNK - 1; t >= 0; --t) {
-      const float dtv = s.dt[t][c];
-      const float et = ex2(dtv * a2);
-      const float g = fmaf(s.C[t][n], s.dy[t][c], G);
-      const float q = g * et * hh[t];
-      v1[t] = g * s.B[t][n];
-      v2[t] = a * q;
-      dA_acc = fmaf(dtv, q, dA_acc);
-      sm.red[0][t][c * N_STATE + n] = g * (dtv * to_f(s.x[t][c]));  // dB's
-      G = et * g;
-    }
-    // Reduce-scatter over the channel's 16 lanes, halves first: lane n ends
-    // with step n's sums.
+      for (int u = 0; u < GROUP; ++u) {
+        const int t = k * GROUP + u;
+        const float dtv = at(dt4, u), dtx = dtv * at(x4, u);
+        const float4 b4 = *reinterpret_cast<const float4*>(&s.B[p][t][n0]);
 #pragma unroll
-    for (int m = N_STATE / 2; m >= 1; m /= 2) {
-      const bool upper = n & m;
+        for (int j = 0; j < NL; ++j) hr[t][j] = h[j];
 #pragma unroll
-      for (int j = 0; j < m; ++j) {
-        const float k1 = upper ? v1[m + j] : v1[j];
-        const float s1 = upper ? v1[j] : v1[m + j];
-        const float k2 = upper ? v2[m + j] : v2[j];
-        const float s2 = upper ? v2[j] : v2[m + j];
-        v1[j] = k1 + __shfl_xor_sync(0xffffffffu, s1, m);
-        v2[j] = k2 + __shfl_xor_sync(0xffffffffu, s2, m);
+        for (int j = 0; j < NL; ++j) {
+          h[j] = fmaf(h[j], ex2(dtv * a2[j]), dtx * at(b4, j));
+          v[u * NL + j] = at(dy4, u) * h[j];
+        }
       }
+      warp_channel_sums(v, red[warp][1], k, n0 + p, lane);
     }
-    sm.sdx[n][c] = s.dt[n][c] * v1[0];
-    sm.sddt[n][c] = fmaf(to_f(s.x[n][c]), v1[0], v2[0]);
-    __syncthreads();
-    // dx and ddt rows: a thread an element of the (CHUNK, BWD_CH) tile
-    for (int i = threadIdx.x; i < CHUNK * BWD_CH; i += BWD_THREADS) {
-      const int t = i / BWD_CH, cc = i % BWD_CH, tt = t0 + t, dd = d0 + cc;
-      if (tt < S && dd < DI) {
-        from_f(sm.sdx[t][cc], dx[(row + tt) * DI + dd]);
-        ddt[(row + tt) * DI + dd] = sm.sddt[t][cc];
+
+    // The reverse recurrence, each step's exp formed again.  The next
+    // chunk's tiles are read into registers half-way, once the upper half's
+    // held states are spent, and its state is copied into sm.h0.
+#pragma unroll
+    for (int k = CHUNK / GROUP - 1; k >= 0; --k) {
+      if (k == CHUNK / GROUP / 2 - 1 && ci > 0) {
+        read_pieces<X, VEC>(pc, x, dt, dy, Bm, Cm, row, S, DI, d0,
+                            t0 - CHUNK, tid);
+        saved_state(ci - 1);
       }
+      const float4 dt4 = *reinterpret_cast<const float4*>(&s.dt[c][k * GROUP]);
+      const float4 x4 = *reinterpret_cast<const float4*>(&s.x[c][k * GROUP]);
+      const float4 dy4 = *reinterpret_cast<const float4*>(&s.dy[c][k * GROUP]);
+      float v[GROUP * NL];                       // dB's terms g_t dt_t x_t
+      float sn[GROUP * 2];   // a step's sum_n g B and sum_n A q, lane's part
+#pragma unroll
+      for (int u = GROUP - 1; u >= 0; --u) {
+        const int t = k * GROUP + u;
+        const float dtv = at(dt4, u), dtx = dtv * at(x4, u), dyv = at(dy4, u);
+        const float4 b4 = *reinterpret_cast<const float4*>(&s.B[p][t][n0]);
+        const float4 c4 = *reinterpret_cast<const float4*>(&s.C[p][t][n0]);
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int j = 0; j < NL; ++j) {
+          const float g = fmaf(at(c4, j), dyv, G[j]);
+          const float ge = g * ex2(dtv * a2[j]);
+          const float q = ge * hr[t][j];
+          s1 = j ? fmaf(g, at(b4, j), s1) : g * at(b4, j);
+          s2 = j ? fmaf(a[j], q, s2) : a[j] * q;
+          dA[j] = fmaf(dtv, q, dA[j]);
+          v[u * NL + j] = g * dtx;
+          G[j] = ge;
+        }
+        sn[2 * u] = s1, sn[2 * u + 1] = s2;
+      }
+      // over the channel's 4 lanes (bits 1, 0): lane sub ends with step
+      // k * GROUP + sub's sums; its dx and ddt
+      reduce_scatter<GROUP, 2, 1>(sn, lane);
+      const int t = k * GROUP + sub, tt = t0 + t;
+      if (active && tt < S) {
+        const long long o = (row + tt) * DI + d;
+        from_f(s.dt[c][t] * sn[0], dx[o]);
+        ddt[o] = fmaf(s.x[c][t], sn[0], sn[1]);
+      }
+      warp_channel_sums(v, red[warp][0], k, n0 + p, lane);
     }
-    // dB's and dC's partials: a thread a (which, step, state), its sum over
-    // the block's channels in order
-    for (int i = threadIdx.x; i < 2 * CHUNK * N_STATE; i += BWD_THREADS) {
-      const int w = i / (CHUNK * N_STATE), r = i % (CHUNK * N_STATE);
-      const int t = r / N_STATE, nn = r % N_STATE;
-      float sum = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < BWD_CH; ++k) sum += sm.red[w][t][k * N_STATE + nn];
-      if (t0 + t < S)
-        part[(((static_cast<long long>(w) * gridDim.x + blockIdx.x) * B + b)
-                  * S + t0 + t) * N_STATE + nn] = sum;
-    }
-    __syncthreads();   // the stage buffer, red and the rows are reused
+    if (ci > 0) write_pieces(sm.st[(ci - 1) & 1], pc, tid);
   }
-  if (active) dA_part[hidx] = dA_acc;
+  __syncthreads();
+  if (chunks > 0) flush_partials(sm.red[0], part, B, S, b, 0, tid);
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < NL; ++j) dA_part[hidx + (j ^ p)] = dA[j];
+  }
 }
 
 // dB and dC: the blocks' partials summed over the channel blocks in order;
-// dA: the partials summed over the batch in order.
+// dA: the partials summed over the batch in order.  A thread a 16-byte
+// piece (4 states), its loads unrolled so that several are in flight.
 __global__ void __launch_bounds__(256)
-ssm_scan_bwd_sums(const float* __restrict__ part,
-                  const float* __restrict__ dA_part, float* __restrict__ dB,
-                  float* __restrict__ dC, float* __restrict__ dA, int blocks,
+ssm_scan_bwd_sums(const float4* __restrict__ part,
+                  const float4* __restrict__ dA_part, float4* __restrict__ dB,
+                  float4* __restrict__ dC, float4* __restrict__ dA, int blocks,
                   int B, int S, int DI) {
-  const long long nb = static_cast<long long>(B) * S * N_STATE;
-  const long long na = static_cast<long long>(DI) * N_STATE;
+  const long long nb = static_cast<long long>(B) * S * N_STATE / 4;
+  const long long na = static_cast<long long>(DI) * N_STATE / 4;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
                      + threadIdx.x;
        i < 2 * nb + na; i += stride) {
-    float sum = 0.f;
-    if (i < 2 * nb) {
-      const bool w = i >= nb;
-      const long long j = w ? i - nb : i;
-      const float* p = part + (w ? blocks * nb : 0) + j;
-      for (int k = 0; k < blocks; ++k) sum += p[k * nb];
-      (w ? dC : dB)[j] = sum;
-    } else {
-      const long long j = i - 2 * nb;
-      for (int k = 0; k < B; ++k) sum += dA_part[k * na + j];
-      dA[j] = sum;
+    const bool ab = i < 2 * nb, w = i >= nb;
+    const long long j = ab ? (w ? i - nb : i) : i - 2 * nb;
+    const float4* p = ab ? part + (w ? blocks * nb : 0) + j : dA_part + j;
+    const long long step = ab ? nb : na;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int k = 0; k < (ab ? blocks : B); ++k) {
+      const float4 v = p[k * step];
+      sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
     }
+    (ab ? (w ? dC : dB) : dA)[j] = sum;
   }
 }
 
@@ -627,13 +779,14 @@ cudaError_t launch_bwd(const void* x, const void* dt, const void* Bm,
                        const void* dh_final, const void* hs, void* dx,
                        void* ddt, float* part, float* dA_part, int B, int S,
                        int DI, cudaStream_t st) {
-  constexpr size_t smem = sizeof(BwdSmem<X>);     // 88 KB in fp32
-  const cudaError_t err = cudaFuncSetAttribute(
-      ssm_scan_bwd_kernel<X, VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  constexpr size_t smem = sizeof(BwdSmem);
   const dim3 grid((DI + BWD_CH - 1) / BWD_CH, B);
-  ssm_scan_bwd_kernel<X, VEC><<<grid, BWD_THREADS, smem, st>>>(
+  auto kernel = ssm_scan_bwd_kernel<X, VEC>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, BWD_THREADS, smem, st>>>(
       static_cast<const X*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(Bm), static_cast<const float*>(Cm),
       static_cast<const float*>(A), static_cast<const float*>(dy),
@@ -666,12 +819,14 @@ cudaError_t dispatch_bwd(const void* x, const void* dt, const void* Bm,
     if (err != cudaSuccess) return err;
   }
   const long long total =
-      (2LL * B * S + static_cast<long long>(DI)) * N_STATE;
+      (2LL * B * S + static_cast<long long>(DI)) * N_STATE / 4;
   const long long want = (total + 255) / 256;
   const int blocks = static_cast<int>(want < 4096 ? want : 4096);
   ssm_scan_bwd_sums<<<blocks, 256, 0, st>>>(
-      pt, pa, static_cast<float*>(dB), static_cast<float*>(dC),
-      static_cast<float*>(dA), (DI + BWD_CH - 1) / BWD_CH, B, S, DI);
+      reinterpret_cast<const float4*>(pt),
+      reinterpret_cast<const float4*>(pa), static_cast<float4*>(dB),
+      static_cast<float4*>(dC), static_cast<float4*>(dA),
+      (DI + BWD_CH - 1) / BWD_CH, B, S, DI);
   return cudaGetLastError();
 }
 
@@ -706,7 +861,8 @@ extern "C" int windve_ssm_scan_bwd_channels() { return BWD_CH; }
 // dh_final (B, DI, 16) float32 or null (zero), from the forward's inputs and
 // its chunk states hs.  All contiguous; outputs dx (B, S, DI) in x's dtype,
 // ddt (B, S, DI), dB and dC (B, S, 16) and dA (DI, 16) float32; workspaces
-// part (2 x ceil(DI / 32) x B x S x 16 floats) and dA_part (B x DI x 16).
+// part (2 x ceil(DI / 32) x B x S x 16 floats) and dA_part (B x DI x 16);
+// dB, dC, dA and the workspaces 16-byte aligned.
 // Two launches on `stream`; returns their cudaError_t.
 extern "C" int windve_ssm_scan_bwd(const void* x, const void* dt,
                                    const void* Bm, const void* Cm,

@@ -149,6 +149,20 @@ def test_pool_norm_rejects_unknown_mode():
         pool_norm(torch.zeros(1, 2, 4), torch.ones(1, 2), "max")
 
 
+
+def _variants_module():
+    """benchmarks/torch_kernel_variants.py, imported from its path."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_variants",
+        os.path.join(root, "benchmarks", "torch_kernel_variants.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
 class TestRouting:
     def test_cpu_tensors_take_the_plain_version(self):
         q, k, v = (torch.from_numpy(x) for x in _attn_inputs(2, 4, 2, 9, 16))
@@ -202,18 +216,29 @@ class TestRouting:
         """benchmarks/torch_kernel_variants.py times variants made by
         literal substitutions in this tree's CUDA sources: each must still
         find its text, or the variant would time the tree's kernel."""
-        import importlib.util
-        import os
-
-        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        spec = importlib.util.spec_from_file_location(
-            "torch_kernel_variants",
-            os.path.join(root, "benchmarks", "torch_kernel_variants.py"))
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        mod = _variants_module()
         for variant, (src, subs, from_parent) in mod.SETS[name].items():
             if from_parent:
                 continue
             text = (build.CSRC / src).read_text()
             for old, _ in subs:
                 assert old in text, (variant, old)
+
+    def test_variants_written_for_an_older_parent_are_skipped(self):
+        """A parent variant whose text the parent at hand lacks gives no
+        source (it is skipped, and the set runs on); a variant of this
+        tree whose text is missing stops the run."""
+        mod = _variants_module()
+        src = "ssm_scan.cu"
+        tree = (build.CSRC / src).read_text()
+        assert mod.variant_source("parent", mod.ROOT, src, [], True) == tree
+        missing = [("no such text", "")]
+        assert mod.variant_source("v", mod.ROOT, src, missing, True) is None
+        with pytest.raises(SystemExit):
+            mod.variant_source("v", mod.ROOT, src, missing, False)
+        # the scan backward's ablations of its 512-thread design, with this
+        # tree as the parent
+        _, subs, from_parent = mod.SETS["ssm_scan_bwd"]["ablate_partials"]
+        assert from_parent
+        assert mod.variant_source("ablate_partials", mod.ROOT, src, subs,
+                                  True) is None

@@ -702,8 +702,9 @@ def test_ssm_scan_reads_column_slices_of_one_projection():
 
 
 # the scan's backward: the forward's shapes, plus hymba-1.5b's training
-# shape (B 8 x S 512, d_inner 3200)
-SSM_BWD_CASES = SSM_CASES + [(8, 512, 3200, 16)]
+# shape (B 8 x S 512, d_inner 3200) and falcon-mamba-7b's (B 4, d_inner
+# 8192)
+SSM_BWD_CASES = SSM_CASES + [(8, 512, 3200, 16), (4, 512, 8192, 16)]
 SCAN_GRADS = ("dx", "ddt", "dBm", "dCm", "dA")
 
 
@@ -741,6 +742,41 @@ def test_ssm_scan_backward_kernel_matches_plain(case, dtype, dh):
     again = ssm_scan_bwd(x, dt, Bm, Cm, A, dy, dhf, states)
     torch.cuda.synchronize()
     assert ssm_scan_bwd.launches == before + 2
+    _scan_grads_close(got, ssm_scan_bwd_ref(x, dt, Bm, Cm, A, dy, dhf),
+                      dtype)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dh", [False, True], ids=["no_dh", "dh"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_backward_takes_unaligned_bases(dtype, dh):
+    """x and dy that start one element past a 16-byte boundary (DI 96, S
+    off the chunk): the element path that reads the tiles and B and C
+    without 16-byte pieces, against the plain backward, bit for bit across
+    two calls."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd, ssm_scan_bwd_ref
+    from repro_torch.kernels.ssm_scan.ops import _forward
+
+    B, S, DI, N = 2, 41, 96, 16
+    x, dt, Bm, Cm, A = _ssm_inputs(B, S, DI, N, dtype)
+    rng = np.random.default_rng(13)
+    dy = _on_card(rng.standard_normal((B, S, DI), np.float32), "float32")
+    dhf = (_on_card(rng.standard_normal((B, DI, N), np.float32), "float32")
+           if dh else None)
+
+    def unaligned(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        u = flat[1:].view_as(t)
+        u.copy_(t)
+        assert u.is_contiguous() and u.data_ptr() % 16
+        return u
+
+    xu, dyu = unaligned(x), unaligned(dy)
+    states = _forward(x, dt, Bm, Cm, A, True)[2]
+    got = ssm_scan_bwd(xu, dt, Bm, Cm, A, dyu, dhf, states)
+    again = ssm_scan_bwd(xu, dt, Bm, Cm, A, dyu, dhf, states)
+    torch.cuda.synchronize()
     _scan_grads_close(got, ssm_scan_bwd_ref(x, dt, Bm, Cm, A, dy, dhf),
                       dtype)
     for a, b in zip(got, again):

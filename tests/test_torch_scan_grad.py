@@ -34,6 +34,7 @@ BF16_STEP = 2.0 ** -7
 N = 16
 CHUNK = 16                  # steps a saved state covers (csrc CHUNK)
 BWD_CH = 32                 # channels a backward block sums (csrc BWD_CH)
+BWD_LANES = 4               # lanes a channel, 4 states each (csrc BWD_LANES)
 LOG2E = np.float32(1.0 / math.log(2.0))
 NAMES = ("dx", "ddt", "dBm", "dCm", "dA")
 
@@ -167,23 +168,52 @@ def test_backward_router_takes_the_plain_version_on_the_cpu():
 
 
 # ---------------------------------------------------- the kernel's split --
-def _lane_sum(v):
-    """Sum over the 16 states in the order of the kernel's reduce-scatter
-    over a channel's 16 lanes: lanes l and l + 8 first, then l and l + 4,
-    and so on."""
-    while v.shape[-1] > 1:
-        half = v.shape[-1] // 2
-        v = v[..., :half] + v[..., half:]
-    return v[..., 0]
+def _slot_order(DI):
+    """(DI, 16) state indices in the order the kernel's lanes hold them:
+    lane k of channel d holds states 4k + (r ^ p) in its slots r = 0 .. 3,
+    with p = (d % BWD_CH >> 1) & 3, its lane bits 4 and 3."""
+    p = (torch.arange(DI) % BWD_CH >> 1) & 3
+    r = torch.arange(N) % 4
+    return (torch.arange(N) - r)[None, :] + (r[None, :] ^ p[:, None])
+
+
+def _lane_sums(v):
+    """Sum over the 16 states (last axis; channels on the one before) in the
+    kernel's order: each of a channel's 4 lanes adds its 4 slots in turn,
+    then the reduce-scatter over the lanes adds lanes l and l + 2, then the
+    two pairs: (L0 + L2) + (L1 + L3)."""
+    v = torch.gather(v, -1, _slot_order(v.shape[-2]).expand_as(v))
+    lanes = [v[..., 4 * k] for k in range(BWD_LANES)]
+    for k in range(BWD_LANES):
+        for j in range(1, 4):
+            lanes[k] = lanes[k] + v[..., 4 * k + j]
+    return (lanes[0] + lanes[2]) + (lanes[1] + lanes[3])
+
+
+def _block_sums(red):
+    """Sum the terms over each block's BWD_CH channels (axis -2) in the
+    kernel's order: a warp's 8 channels by its reduce-scatter over lane bits
+    4, 3 and 2, ((c0 + c4) + (c2 + c6)) + ((c1 + c5) + (c3 + c7)), then the
+    block's warps in order."""
+    *lead, nblk, _, n = red.shape
+    w = red.reshape(*lead, nblk, BWD_CH // 8, 8, n)
+    p = w[..., :4, :] + w[..., 4:, :]               # channels c and c + 4
+    p = p[..., :2, :] + p[..., 2:, :]               # then c and c + 2
+    warp = p[..., 0, :] + p[..., 1, :]              # then c and c + 1
+    total = warp[..., 0, :]
+    for k in range(1, BWD_CH // 8):
+        total = total + warp[..., k, :]
+    return total
 
 
 def kernel_split_bwd(x, dt, Bm, Cm, A, dy, dhf):
     """The backward kernel's arithmetic in plain torch: the forward saves
     the state entering every CHUNK steps; the chunks run in reverse, each
     recomputing its states from the saved one with exp as 2^(dt (A log2 e));
-    dx and ddt sum over n in the lanes' order; dB and dC are summed over
-    each block's 32 channels in order, then over the blocks in order; dA
-    over time within a batch row, then over the rows in order."""
+    dx and ddt sum over n in the lanes' order (``_lane_sums``); dB and dC
+    are summed over each block's BWD_CH channels in the warps' and the
+    block's order (``_block_sums``), then over the blocks in order; dA over
+    time within a batch row, then over the rows in order."""
     Bsz, S, DI = x.shape
     xf, dtf, Bf, Cf, Af, dyf = (t.float() for t in (x, dt, Bm, Cm, A, dy))
     a2 = Af * float(LOG2E)
@@ -213,17 +243,15 @@ def kernel_split_bwd(x, dt, Bm, Cm, A, dy, dhf):
         for t in reversed(range(t0, t1)):
             k = t - t0
             g = Cf[:, t, None, :] * dyf[:, t, :, None] + G
-            q = g * es[k] * hh[k]
-            s1 = _lane_sum(g * Bf[:, t, None, :])
+            ge = g * es[k]
+            q = ge * hh[k]
+            s1 = _lane_sums(g * Bf[:, t, None, :])
             dx[:, t] = dtf[:, t] * s1
-            ddt[:, t] = xf[:, t] * s1 + _lane_sum(Af * q)
+            ddt[:, t] = xf[:, t] * s1 + _lane_sums(Af * q)
             dA_row = dA_row + dtf[:, t, :, None] * q
             red[0, :, t, :DI] = g * (dtf[:, t] * xf[:, t])[..., None]
-            G = es[k] * g
-    red = red.reshape(2, Bsz, S, nblk, BWD_CH, N)
-    part = torch.zeros((2, Bsz, S, nblk, N))
-    for c in range(BWD_CH):                     # a block's channels in order
-        part = part + red[:, :, :, :, c]
+            G = ge
+    part = _block_sums(red.reshape(2, Bsz, S, nblk, BWD_CH, N))
     sums = torch.zeros((2, Bsz, S, N))
     for blk in range(nblk):                     # the blocks in order
         sums = sums + part[:, :, :, blk]
@@ -235,10 +263,13 @@ def kernel_split_bwd(x, dt, Bm, Cm, A, dy, dhf):
 
 # (B, S, DI, x dtype, dh_final): the 1100-token prompt hymba-1.5b prefills
 # at a narrow d_inner, S and DI off the chunks and the 32-channel blocks,
-# one step, and several whole blocks of channels
+# one step, several whole blocks of channels, a DI that ends inside a
+# warp's 8 channels of the second block with S off the chunks, and nine
+# whole blocks and part of a tenth
 SPLIT_CASES = [(2, 1100, 40, "float32", True), (2, 1100, 40, "bfloat16", False),
                (3, 33, 130, "float32", False), (3, 33, 130, "bfloat16", True),
-               (1, 1, 7, "float32", True), (2, 48, 96, "float32", False)]
+               (1, 1, 7, "float32", True), (2, 48, 96, "float32", False),
+               (2, 70, 45, "bfloat16", True), (1, 20, 300, "float32", True)]
 
 
 @pytest.mark.parametrize("case", SPLIT_CASES, ids=_case_id)
