@@ -159,12 +159,28 @@ non-zero:
            65 rmsnorm_bwd; every other kernel none); the mean loss of the
            last 5 below the first 5's;
            ms a step by CUDA events, the host's enqueue time a step,
-           tokens/s, 6 N tokens over the step time at the bf16 peak, peak
+           tokens/s, the model flops (6 N tokens, N the active params:
+           roofline.model_flops) over the step time at the bf16 peak, peak
            memory; then one traced step's five largest device operations,
            its wall, device busy time and idle share and its largest
            kernels; (c) launch/train.py at the smoke
            config: 3 steps, a checkpoint and 3 resumed steps against 6
            straight ones (losses within 1e-5, params within 1e-6).
+  dryrun   the dry run (src/repro_torch/launch/dryrun.py's tracing on the
+           meta device) against the card, for three steps: stablelm-1.6b's
+           train step at B 8 x S 512, hymba-1.5b's first decode step at the
+           generate phase's batch (16 prompts of 64 tokens, 80 fp32 cache
+           slots) and bge-large-zh-v1.5's bf16 forward at B 16 x S 96.
+           Each is traced on meta tensors (roofline.op_cost: flops, bytes,
+           kernel calls, peak temp bytes; roofline.analysis: model flops
+           and the H100 roofline bound), then run on the card from seeded
+           random weights: launch counts zeroed just before one step and
+           read just after must equal the kernel calls counted on meta,
+           and the step's device time must be at or above the bound, both
+           its span by CUDA events (median of 3) and its busy time (the
+           kernels' durations in a torch.profiler trace).  It reports the
+           share of the bf16 peak and the dry run's argument + temp bytes
+           over torch.cuda.max_memory_allocated (no limit yet).
   profile  (only when named) one bge forward at B=16 x S=96 under each
            policy, and one prefill (B=16 x S=64) and decode step of each
            of the eight decoders:
@@ -195,12 +211,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("build", "kernels", "golden", "serve", "offload", "chaos",
-          "generate", "encdec", "mesh", "train")
+          "generate", "encdec", "mesh", "train", "dryrun")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12,      # fp32 outside the tensor cores
-              "bfloat16": 989e12,    # dense bf16 tensor cores
-              "int8": 1979e12}       # dense int8 tensor cores
+# the card's rates (H100 SXM data sheet) and each kernel's work are the
+# dry run's: one definition, in src/repro_torch/roofline (outside the
+# repo this import fails, and the script prints no result)
+from repro_torch.roofline import analysis as roofline  # noqa: E402
+from repro_torch.roofline import kernel_cost  # noqa: E402
+
+HBM_BYTES_PER_S = roofline.HBM_BW
+PEAK_FLOPS = {"float32": roofline.PEAK_FLOPS_FP32,  # outside tensor cores
+              "bfloat16": roofline.PEAK_FLOPS_BF16,  # dense tensor cores
+              "int8": roofline.PEAK_OPS_INT8}        # dense tensor cores
 SFU_PER_CLOCK = 16                   # MUFU.EX2 results a clock an SM (sm_90)
 H100_SMS, H100_MAX_SM_MHZ = 132, 1980  # data sheet, where no card is read
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
@@ -294,6 +316,12 @@ TRAIN_ARCHS = ("stablelm-1.6b", "hymba-1.5b")
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = (
     TRAIN_ARCHS[0], 8, 512, 20, 3e-4)
 TRAIN_LOSS_REL, TRAIN_GRAD_COSINE = 1e-5, 0.9999
+# the dryrun phase's steps (arch, batch, tokens): stablelm-1.6b's train
+# step, hymba-1.5b's first decode step at the generate phase's batch after
+# its 64-token prompts, bge-large-zh-v1.5's bf16-policy forward
+DRYRUN_STEPS = {"stablelm_train": (TRAIN_ARCH, TRAIN_B, TRAIN_S),
+                "hymba_decode": (LM_ARCH, LM_B, LM_PROMPT),
+                "bge_bf16_forward": ("bge-large-zh-v1.5", MAIN_B, MAIN_S)}
 
 
 def emit(obj) -> None:
@@ -461,17 +489,14 @@ def attention_case(dev, B, H, KV, S, hd, dt, kv_len, *, causal=False,
            "max_abs_err": err, "tol": tol, "finite": finite,
            "kv_len0_rows_zero": zeros_ok,
            "ok": err <= tol and finite and zeros_ok}
-    # what these inputs need: q rows with at least one valid key, k and v
-    # rows that some query may see, every output row (a row with no valid
-    # key is still written, as zeros) and kv_len
-    esize = q.element_size()
+    # what these inputs need (kernel_cost.flash_attention): q rows with at
+    # least one valid key, k and v rows that some query may see, every
+    # output row and kv_len; QK^T and PV over the valid pairs
     mask = attention_mask(B, S, Sk, causal=causal, window=window, kv_len=kvl,
                           device=dev)                       # (B, Sq, Sk)
-    q_rows = int(mask.any(-1).sum().item())
-    kv_rows = int(mask.any(-2).sum().item())
-    nbytes = ((H * q_rows + B * H * S + 2 * KV * kv_rows) * hd * esize
-              + 4 * B)
-    flops = 4 * hd * H * int(mask.sum().item())   # QK^T and PV, valid pairs
+    flops, nbytes = kernel_cost.flash_attention(
+        B, H, KV, S, Sk, hd, q.element_size(), int(mask.sum().item()),
+        int(mask.any(-1).sum().item()), int(mask.any(-2).sum().item()))
     if dt == torch.float32:
         # fp32 runs on the bf16 tensor cores as six products of its exact
         # three-term split; the CUDA cores' fp32 rate is given beside it
@@ -512,27 +537,23 @@ def pool_case(dev, B, S, D, dt, pool, lens) -> dict:
     out = {"B": B, "S": S, "D": D, "dtype": dtype_name(dt), "pool": pool,
            "max_abs_err": err, "tol": tol, "masked_rows_zero": zeros_ok,
            "ok": err <= tol and zeros_ok and got.dtype == torch.float32}
-    # what these inputs need: the hidden rows of unmasked tokens (mean) or
-    # token 0 of rows whose first token is unmasked (CLS), the mask, the
-    # output
-    esize = h.element_size()
-    if pool == "mean":
-        tokens = sum(min(n, S) for n in lens)
-        nbytes = tokens * D * esize + 4 * B * S + 4 * B * D
-        flops = 2 * tokens * D + 3 * B * D
+    # what these inputs need (kernel_cost.pool_norm): the hidden rows of
+    # unmasked tokens (mean) or token 0 of rows whose first token is
+    # unmasked (CLS), the mask, the output
+    rows = (sum(min(n, S) for n in lens) if pool == "mean"
+            else sum(1 for n in lens if n > 0))
+    flops, nbytes = kernel_cost.pool_norm(B, S, D, h.element_size(), pool,
+                                          rows)
 
-        def library():
+    def library():
+        if pool == "mean":
             pooled = torch.einsum("bsd,bs->bd", h.float(), mask) \
                 / mask.sum(1, keepdim=True).clamp_min(1.0)
             return F.normalize(pooled, dim=-1, eps=1e-9)
-    else:      # CLS needs token 0 of each row and mask[:, 0] only
-        cls_rows = sum(1 for n in lens if n > 0)
-        nbytes = cls_rows * D * esize + 4 * B + 4 * B * D
-        flops = 4 * B * D
+        # CLS needs token 0 of each row and mask[:, 0] only
+        return F.normalize(h[:, 0].float() * mask[:, :1].clamp_max(1.0),
+                           dim=-1, eps=1e-9)
 
-        def library():
-            return F.normalize(h[:, 0].float() * mask[:, :1].clamp_max(1.0),
-                               dim=-1, eps=1e-9)
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops, "float32")
     out["kernel_ms"] = time_ms(lambda: pool_norm(h, mask, pool), dev)
     out["plain_ms"] = time_ms(lambda: pool_norm_ref(h, mask, pool), dev)
@@ -584,8 +605,8 @@ def quant_matmul_case(dev, M, K, N, dt=None) -> dict:
     # of an fp32's 24 significant bits, and int8 weights are exact in one.
     # (2MKN fp32 FMAs at 67 TFLOP/s bound a CUDA-core kernel only.)
     passes = 3 if dt == torch.float32 else 1
-    nbytes = x.element_size() * (M * K + M * N) + K * N + 4 * N
-    out["bound_ms"], out["bound_by"] = bound(nbytes, passes * 2 * M * K * N,
+    flops, nbytes = kernel_cost.quant_matmul(M, K, N, x.element_size())
+    out["bound_ms"], out["bound_by"] = bound(nbytes, passes * flops,
                                              "bfloat16")
     out["kernel_ms"] = time_ms(lambda: quant_matmul(x, w8, s), dev)
     out["plain_ms"] = time_ms(lambda: quant_matmul_ref(x, w8, s), dev)
@@ -614,8 +635,8 @@ def quantize_rows_case(dev, M, K) -> dict:
            "tol": 0, "bitwise": bitwise, "ok": bitwise}
     # reads x, writes x8 and a scale a row; a max, a divide and a round a
     # value
-    out["bound_ms"], out["bound_by"] = bound(5 * M * K + 4 * M, 3 * M * K,
-                                             "float32")
+    flops, nbytes = kernel_cost.quantize_rows(M, K, x.element_size())
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, "float32")
     out["kernel_ms"] = time_ms(lambda: quantize_rows(x), dev)
     out["plain_ms"] = time_ms(lambda: quantize_activations(x), dev)
     out["library_ms"] = None              # no one PyTorch call does this
@@ -644,8 +665,8 @@ def w8a8_case(dev, M, K, N, out_dtype=None) -> dict:
     out = {"M": M, "K": K, "N": N, "dtype": f"int8->{dtype_name(dt)}",
            "max_abs_err": (got.float() - want.float()).abs().max().item(),
            "tol": 0, "bitwise": bitwise, "ok": bitwise}
-    nbytes = M * K + K * N + 4 * M + 4 * N + got.element_size() * M * N
-    out["bound_ms"], out["bound_by"] = bound(nbytes, 2 * M * K * N, "int8")
+    flops, nbytes = kernel_cost.w8a8_matmul(M, K, N, got.element_size())
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, "int8")
     out["kernel_ms"] = time_ms(
         lambda: w8a8_matmul(x8, w8, xs, s, out_dtype=dt), dev)
     out["plain_ms"] = time_ms(
@@ -686,9 +707,8 @@ def rmsnorm_case(dev, R, D, dt) -> dict:
            "tol": tol, "ok": err <= tol and got.dtype == dt}
     # reads x and the scale once, writes the output once; a square-add and
     # two multiplies an element
-    esize = x.element_size()
-    out["bound_ms"], out["bound_by"] = bound(2 * R * D * esize + 4 * D,
-                                             3 * R * D, "float32")
+    flops, nbytes = kernel_cost.rmsnorm(R, D, x.element_size())
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, "float32")
     out["kernel_ms"] = time_ms(lambda: rmsnorm(x, scale, 1e-5), dev)
     out["plain_ms"] = time_ms(lambda: rmsnorm_ref(x, scale, 1e-5), dev)
     w = scale.to(dt)
@@ -768,12 +788,10 @@ def attention_bwd_case(dev, B, H, KV, Sq, Sk, hd, dt, kv_len, *,
     # reads q, o, dO, k, v and lse once, writes dq, dk and dv once; the
     # products the gradients need: q k^T, dO v^T, dV, dK and dQ, 2 hd
     # flops each a valid (query, key) pair a head
-    esize = q.element_size()
     mask = attention_mask(B, Sq, Sk, causal=causal, window=window,
                           kv_len=kvl, device=dev)
-    nbytes = ((4 * B * H * Sq + 4 * B * KV * Sk) * hd * esize
-              + 4 * B * H * Sq + 4 * B)
-    flops = 10 * hd * H * int(mask.sum().item())
+    flops, nbytes = kernel_cost.flash_attention_bwd(
+        B, H, KV, Sq, Sk, hd, q.element_size(), int(mask.sum().item()))
     # on the same basis as the forward's: fp32 on the bf16 tensor cores as
     # six products of its exact three-term split, as the kernel runs it;
     # the CUDA cores' fp32 rate's bound is given beside
@@ -832,9 +850,8 @@ def rmsnorm_bwd_case(dev, R, D, dt) -> dict:
            "ok": all(ok for ok, _ in held) and repeat}
     # reads x, dy and the scale once, writes dx and dscale once; about 8
     # flops an element (two sums, dx, the scale's partial)
-    esize = x.element_size()
-    out["bound_ms"], out["bound_by"] = bound(3 * R * D * esize + 8 * D,
-                                             8 * R * D, "float32")
+    flops, nbytes = kernel_cost.rmsnorm_bwd(R, D, x.element_size())
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, "float32")
     out["kernel_ms"] = time_ms(lambda: rmsnorm_bwd(x, scale, dy, 1e-5), dev)
     if dev.type == "cuda":
         out["split_ms"] = kernel_split(
@@ -873,11 +890,11 @@ def ssm_case(dev, B, S, DI, N, dt, sfu) -> dict:
     # d, n) takes one exp on the SFU and six fp32 flops (dt * A, h's FMA,
     # dx * B, the FMA with C); a (b, t, d) one more (dt * x).  The bound is
     # the largest of the three times.
-    nbytes = (B * S * DI * (x.element_size() + 8) + 8 * B * S * N
-              + 4 * DI * N + 4 * B * DI * N)
+    flops, nbytes = kernel_cost.ssm_scan(B, S, DI, N, x.element_size())
     terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-             "fma_ms": B * S * DI * (6 * N + 1) / PEAK_FLOPS["float32"] * 1e3,
-             "sfu_ms": B * S * DI * N / sfu["per_s"] * 1e3}
+             "fma_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+             "sfu_ms": kernel_cost.ssm_scan_exps(B, S, DI, N)
+             / sfu["per_s"] * 1e3}
     out["bound_ms"] = max(terms.values())
     out["bound_by"] = ("bytes" if terms["bytes_ms"] == out["bound_ms"]
                        else "operations")
@@ -962,16 +979,12 @@ def ssm_bwd_case(dev, B, S, DI, N, dt, dh, sfu) -> dict:
     # it twice, in the recompute and the reverse step) and 19 fp32 flops
     # (the recompute 5, the reverse step 10, the sums over n and d 4); a
     # (b, t, d) 5 more.
-    esize = x.element_size()
-    chunks = -(-S // 16)
-    nbytes = (B * S * DI * (2 * esize + 12) + 16 * B * S * N
-              + 8 * DI * N + 4 * B * chunks * DI * N
-              + (4 * B * DI * N if dh else 0))
-    elems = B * S * DI * N
+    flops, nbytes = kernel_cost.ssm_scan_bwd(B, S, DI, N, x.element_size(),
+                                             dh)
     terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-             "fma_ms": (19 * elems + 5 * B * S * DI) / PEAK_FLOPS["float32"]
-             * 1e3,
-             "sfu_ms": elems / sfu["per_s"] * 1e3}
+             "fma_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+             "sfu_ms": kernel_cost.ssm_scan_exps(B, S, DI, N)
+             / sfu["per_s"] * 1e3}
     out["bound_ms"] = max(terms.values())
     out["bound_by"] = ("bytes" if terms["bytes_ms"] == out["bound_ms"]
                        else "operations")
@@ -1037,10 +1050,9 @@ def flash_decode_case(dev, B, KV, G, hd, Sc, pos, window, qdt, cdt) -> dict:
            "ok": err <= tol and zeros_ok and got.dtype == qdt}
     # q and the output once, the k and v rows of valid slots once, kpos;
     # QK and PV over the valid slots
-    qbytes = 2 * B * KV * G * hd * q.element_size()
-    nbytes = qbytes + 2 * B * KV * n_valid * hd * k.element_size() + 4 * Sc
-    out["bound_ms"], out["bound_by"] = bound(
-        nbytes, 4 * B * KV * G * hd * n_valid, "float32")
+    flops, nbytes = kernel_cost.flash_decode(
+        B, KV, G, hd, Sc, n_valid, q.element_size(), k.element_size())
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, "float32")
     out["kernel_ms"] = time_ms(lambda: flash_decode(q, k, v, kpos, pos, **kw),
                                dev)
     out["plain_ms"] = time_ms(
@@ -1101,10 +1113,9 @@ def flash_decode_lse_case(dev, B, KV, G, hd, shards, slots, qdt,
            "ok": err <= tol and lse_ok and got.dtype == qdt}
     # q and the output once, every slot's k and v rows once (all valid),
     # kpos; QK and PV over the slots
-    nbytes = (2 * B * KV * G * hd * q.element_size()
-              + 2 * B * KV * Sc * hd * k.element_size() + 4 * Sc)
-    out["bound_ms"], out["bound_by"] = bound(
-        nbytes, 4 * B * KV * G * hd * Sc, "float32")
+    flops, nbytes = kernel_cost.flash_decode(
+        B, KV, G, hd, Sc, Sc, q.element_size(), k.element_size())
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, "float32")
     out["kernel_ms"] = time_ms(
         lambda: flash_decode_sharded(q, ks, vs, kps, pos), dev)
     # the shards' launches alone, without the combine's plain ops
@@ -2841,6 +2852,8 @@ def train_arch(dev, arch: str) -> dict:
     first, last = (statistics.mean(losses[:5]), statistics.mean(losses[-5:]))
     steady = statistics.median(times[2:])
     tokens = B * S
+    # 6 N D with N the active params (all of them for a dense model)
+    mflops = roofline.model_flops(cfg, shape, params)
     out.update({
         "losses": losses, "first5_mean_loss": first, "last5_mean_loss": last,
         "finite": all(math.isfinite(x) for x in losses),
@@ -2848,7 +2861,8 @@ def train_arch(dev, arch: str) -> dict:
         # host time to enqueue a step: above the step time, the host sets it
         "enqueue_ms_median": statistics.median(enqueue[2:]),
         "tokens_per_s": tokens / (steady / 1e3),
-        "share_of_bf16_peak": (6 * n_params * tokens
+        "model_flops": mflops,
+        "share_of_bf16_peak": (mflops
                                / (steady / 1e3 * PEAK_FLOPS["bfloat16"])),
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if cuda else None),
@@ -2925,6 +2939,173 @@ def phase_train(args, dev) -> dict:
     # (c) checkpoint round trip through launch/train.py, smoke config
     out["resume"] = train_resume(dev)
     require(out["resume"]["ok"], f"resume differs: {out['resume']}")
+    return out
+
+
+# ----------------------------------------------------------------------------
+# the dry run against the card
+# ----------------------------------------------------------------------------
+
+def dryrun_step(name: str, dev, cuda: bool) -> tuple:
+    """(step, its arguments, model flops) of one of DRYRUN_STEPS on
+    ``dev``: meta tensors (the dry run), or, on the card, random weights
+    and inputs from seeded generators (a decode step after its prompt's
+    prefill).  The card's sizes when ``cuda``, else smoke ones (the CPU
+    rehearsal)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api, embedder, lm, quantize
+    from repro_torch.steps import inputs, optim
+    from repro_torch.steps.serve import build_decode_step, build_prefill_step
+    from repro_torch.steps.train import build_train_step
+
+    meta = dev.type == "meta"
+
+    def gen(seed):
+        return torch.Generator(dev).manual_seed(seed)
+
+    def params(cfg):
+        return (api.param_shapes(cfg) if meta
+                else api.init_params(cfg, gen(0), device=dev))
+
+    def batch(cfg, shape):
+        return (inputs.input_specs(cfg, shape) if meta
+                else inputs.make_batch(cfg, shape, gen(1)))
+
+    arch, B, S = DRYRUN_STEPS[name]
+    cfg = get_config(arch)
+    if not cuda:
+        cfg, B, S = cfg.smoke(), 2, 24
+    if name == "stablelm_train":
+        shape = ShapeConfig("train", S, B, "train")
+        p = params(cfg)
+        step = build_train_step(cfg, shape,
+                                opt_cfg=optim.AdamWConfig(lr=TRAIN_LR))
+        args = (p, optim.init(p), batch(cfg, shape))
+    elif name == "hymba_decode":
+        # the generate phase's first decode step: B prompts of S tokens in
+        # an S + LM_NEW-slot fp32 cache, bf16 compute, fp32 weights
+        Sc = S + LM_NEW
+        shape = ShapeConfig("decode", Sc, B, "decode")
+        p = params(cfg)
+        if meta:
+            cache = lm.init_cache(cfg, B, Sc, torch.float32, "meta")
+            cache["pos"] = S
+        else:
+            prompt = ShapeConfig("prefill", S, B, "prefill")
+            cache = build_prefill_step(cfg, prompt, cache_dtype=torch.float32,
+                                       max_len=Sc)(p, batch(cfg, prompt))[1]
+        step = build_decode_step(cfg, shape)
+        args = (p, cache, batch(cfg, shape))
+    else:                                   # bge's bf16-policy forward
+        shape = ShapeConfig("prefill", S, B, "prefill")
+        p, cdt = quantize.serve_params(params(cfg), "bf16")
+
+        def step(p, tokens):
+            return embedder.embed(p, cfg, tokens, compute_dtype=cdt)
+
+        args = (p, batch(cfg, shape)["tokens"])
+    return step, args, roofline.model_flops(cfg, shape, args[0])
+
+
+def dryrun_one(name: str, dev) -> dict:
+    """One step traced on the meta device, then run on ``dev``: kernel
+    calls on meta against launches on the card, the roofline bound
+    against the device time, the dry run's argument + temp bytes against
+    the card's peak allocation."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.roofline import op_cost
+
+    cuda = dev.type == "cuda"
+    step, args, mflops = dryrun_step(name, torch.device("meta"), cuda)
+    cost = op_cost.analyse_step(step, *args)
+    roof = roofline.analyse(cost, 1, mflops)
+    arg_bytes = op_cost.tree_bytes(args)
+    del step, args
+    out = {"model_flops": mflops, "flops": cost.flops,
+           "bytes": cost.bytes, "dot_flops": cost.dot_flops,
+           "kernel_flops": cost.kernel_flops, "ops": cost.ops,
+           "compute_ms": roof.compute_s * 1e3,
+           "memory_ms": roof.memory_s * 1e3, "dominant": roof.dominant,
+           "bound_ms": roof.bound_s * 1e3,
+           "meta_kernel_calls": dict(sorted(cost.kernel_calls.items())),
+           "argument_bytes": arg_bytes,
+           "temp_bytes": cost.peak_temp_bytes}
+
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    step, args, _ = dryrun_step(name, dev, cuda)
+    step(*args)                           # warm-up: allocator, cuBLAS
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()                 # the counted step starts here
+    step(*args)
+    sync()
+    counts = {k: v for k, v in launch_counts().items() if v}   # ends here
+    out["launches"] = counts
+    if cuda:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        out["argument_plus_temp_over_allocated"] = (
+            (arg_bytes + cost.peak_temp_bytes)
+            / out["max_memory_allocated"])
+        # the step's span on the device by CUDA events (median of 3), and
+        # its busy time: the kernels' durations in a trace of one step
+        times = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            step(*args)
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        out["event_ms"] = statistics.median(times)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step(*args)
+            sync()
+        path = os.path.join(ROOT, "build", "profile", f"dryrun_{name}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            durs = [e["dur"] for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "kernel"]
+        out["busy_ms"] = sum(durs) / 1e3 if durs else out["event_ms"]
+        out["busy_from"] = "trace" if durs else "events"
+        out["kernels_traced"] = len(durs)
+        out["bound_over_busy"] = out["bound_ms"] / out["busy_ms"]
+        out["share_of_bf16_peak"] = (mflops / (out["event_ms"] / 1e3
+                                               * PEAK_FLOPS["bfloat16"]))
+        require(counts == out["meta_kernel_calls"],
+                f"{name}: kernel calls on meta {out['meta_kernel_calls']}, "
+                f"launches on the card {counts}")
+        for key in ("busy_ms", "event_ms"):
+            require(out[key] >= out["bound_ms"],
+                    f"{name}: {key} {out[key]} below the roofline bound "
+                    f"{out['bound_ms']}")
+    del step, args
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun(args, dev) -> dict:
+    """Each of DRYRUN_STEPS through ``dryrun_one``, one at a time; the
+    launches of the counted steps are this path's."""
+    out = {"card": card_line()}
+    launches: dict = {}
+    for name in DRYRUN_STEPS:
+        res = dryrun_one(name, dev)
+        out[name] = res
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
     return out
 
 
@@ -3041,7 +3222,7 @@ def main() -> int:
     if "kernels" in results:
         by_path = {path: results[path]["launches"]
                    for path in ("serve", "offload", "chaos", "generate",
-                                "encdec", "mesh", "train")
+                                "encdec", "mesh", "train", "dryrun")
                    if path in results}
         emit(kernel_summary(results["kernels"], by_path))
     if failed or not set(PHASES) <= set(phases):

@@ -1,5 +1,6 @@
-from repro_torch.configs.base import (ARCH_MODULES, INPUT_SHAPES, ModelConfig,
-                                     ShapeConfig, get_config)
+from repro_torch.configs.base import (ARCH_MODULES, ASSIGNED_ARCHS,
+                                     INPUT_SHAPES, ModelConfig, ShapeConfig,
+                                     get_config, get_shape, shape_supported)
 
-__all__ = ["ARCH_MODULES", "INPUT_SHAPES", "ModelConfig", "ShapeConfig",
-           "get_config"]
+__all__ = ["ARCH_MODULES", "ASSIGNED_ARCHS", "INPUT_SHAPES", "ModelConfig",
+           "ShapeConfig", "get_config", "get_shape", "shape_supported"]

@@ -3,7 +3,8 @@
 A copy of the reference package's ``configs/base.py``, cut to what the
 embedding-serving and generation paths read: ``ModelConfig`` with its
 derived sizes, its ``smoke()`` reduced variant, ``get_config`` and the
-serving steps' ``ShapeConfig``/``INPUT_SHAPES``.  The registry lists the
+steps' ``ShapeConfig``/``INPUT_SHAPES``, with ``ASSIGNED_ARCHS``,
+``get_shape`` and ``shape_supported`` for the dry run.  The registry lists the
 models the port serves so far: the two embedders, the decoder LMs
 hymba-1.5b, stablelm-1.6b, starcoder2-7b, falcon-mamba-7b, internlm2-20b,
 the MoE decoders granite-moe-3b-a800m and qwen3-moe-30b-a3b, internvl2-2b
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
-from typing import Dict
+from typing import Dict, Tuple
 
 
 @dataclass(frozen=True)
@@ -87,6 +88,12 @@ class ModelConfig:
         return self.block in ("mamba", "hybrid")
 
     @property
+    def subquadratic(self) -> bool:
+        """May this arch serve a 500k-token context?  SSM / hybrid / sliding
+        window qualify; pure full attention does not."""
+        return self.block in ("mamba", "hybrid") or self.sliding_window > 0
+
+    @property
     def has_decoder(self) -> bool:
         return self.arch_type != "encoder"
 
@@ -155,8 +162,30 @@ ARCH_MODULES = {
 }
 
 
+# the reference's assigned architectures, in its registry's order: every
+# model but the paper's two embedders
+ASSIGNED_ARCHS: Tuple[str, ...] = (
+    "falcon-mamba-7b", "internvl2-2b", "internlm2-20b", "hymba-1.5b",
+    "granite-moe-3b-a800m", "qwen3-moe-30b-a3b", "qwen2-72b", "whisper-tiny",
+    "stablelm-1.6b", "starcoder2-7b")
+
+
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[arch]}")
     return mod.CONFIG
+
+
+def get_shape(shape: str) -> ShapeConfig:
+    return INPUT_SHAPES[shape]
+
+
+def shape_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Is (arch, shape) runnable?  Returns (ok, reason-if-not)."""
+    if shape.kind == "decode" and not cfg.has_decoder:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch; 500k dense cache skipped "
+                       "(DESIGN.md §4)")
+    return True, ""

@@ -9,7 +9,11 @@ its log-sum-exp (``lse``) and its backward the backward kernel
 counts forward launches and ``flash_attention_bwd.launches`` backward ones.
 
 There is no fallback: a CUDA tensor the kernel does not take raises, and a
-kernel that fails to build or launch raises.
+kernel that fails to build or launch raises.  Meta tensors (the dry run)
+get empty outputs of the kernel's shapes and dtypes, and the call is
+reported to the cost mode with its work (``roofline.kernel_cost``),
+counting every key as valid (kv_len's values are not known there); the
+launch counters do not move.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
+from repro_torch.roofline import kernel_cost
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +76,27 @@ def _kv_len(kv_len: Optional[torch.Tensor], B: int, Sk: int,
     return kv_len.to(device=device, dtype=torch.int32).contiguous()
 
 
+def _pairs(q, k, causal, window):
+    """(valid pairs, q rows, kv rows) over the batch, every key valid."""
+    B, Sq, Sk = q.shape[0], q.shape[2], k.shape[2]
+    return tuple(B * n for n in kernel_cost.attention_pairs(Sq, Sk, causal,
+                                                            window))
+
+
+def _meta_forward(q, k, v, causal, window, with_lse: bool):
+    """The meta branch: the kernel's empty (out, lse or None), reported."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    cost = kernel_cost.flash_attention(B, H, KV, Sq, Sk, hd, q.element_size(),
+                                       *_pairs(q, k, causal, window),
+                                       lse=with_lse)
+    return kernel_cost.on_meta("flash_attention", cost, (out, lse))
+
+
 def _forward(q, k, v, causal, window, kv_len, with_lse: bool):
     """The kernel: (out, lse or None); the lse is (B, H, Sq) fp32, each
     row's log-sum-exp, -1e30 for a row with no valid key."""
@@ -109,6 +135,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kw = dict(causal=causal, window=window, kv_len=kv_len)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    if q.device.type == "meta":
+        return _meta_bwd(q, k, causal, window)
     _check(q, k, v)
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
@@ -146,6 +174,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _meta_bwd(q, k, causal, window):
+    """The backward's meta branch: empty dq, dk, dv in the card's layout,
+    reported."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+
+    def grad_like(n, S):
+        return torch.empty((B, S, n, hd), dtype=q.dtype,
+                           device=q.device).transpose(1, 2)
+
+    cost = kernel_cost.flash_attention_bwd(B, H, KV, Sq, Sk, hd,
+                                           q.element_size(),
+                                           _pairs(q, k, causal, window)[0])
+    return kernel_cost.on_meta("flash_attention_bwd", cost,
+                               (grad_like(H, Sq), grad_like(KV, Sk),
+                                grad_like(KV, Sk)))
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with a gradient: the forward kernel with its lse and the
     backward kernel on the card, the plain versions on the CPU."""
@@ -155,6 +201,8 @@ class FlashAttentionFn(torch.autograd.Function):
         if q.device.type == "cpu":
             out, lse = attention_ref(q, k, v, causal=causal, window=window,
                                      kv_len=kv_len, return_lse=True)
+        elif q.device.type == "meta":
+            out, lse = _meta_forward(q, k, v, causal, window, True)
         else:
             out, lse = _forward(q, k, v, causal, window, kv_len, True)
         ctx.save_for_backward(q, k, v, out, lse, kv_len)
@@ -189,6 +237,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              kv_len=kv_len)
+    if q.device.type == "meta":
+        return _meta_forward(q, k, v, causal, window, False)[0]
     return _forward(q, k, v, causal, window, kv_len, False)[0]
 
 

@@ -1,6 +1,10 @@
 """Router for flash-decode attention, whole or over a sequence-sharded
 cache: the CUDA kernel for CUDA tensors, the plain PyTorch version for CPU
-tensors.  No fallback."""
+tensors.  No fallback.  Meta tensors (the dry run) get empty outputs of the
+kernel's shapes and dtypes, and the call is reported to the cost mode with
+its work (``roofline.kernel_cost``), the slots taken as holding the latest
+positions up to ``pos`` (kpos's values are not known there); the launch
+counter does not move."""
 from __future__ import annotations
 
 import threading
@@ -11,6 +15,7 @@ from repro_torch.kernels import SERVING_BWD_ITEM, build, refuse_grad
 from repro_torch.kernels.flash_decode.ref import (combine_shards,
                                                   decode_attention_ref,
                                                   sharded_decode_ref)
+from repro_torch.roofline import kernel_cost
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (q, cache) pairs the kernel takes: fp32 compute with an fp32 cache, bf16
@@ -67,6 +72,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_ref(q, k, v, kpos, pos, window=window,
                                     lse=lse)
     refuse_grad("flash_decode", SERVING_BWD_ITEM, q, k, v)
+    if q.device.type == "meta":
+        return _meta(q, k, pos, window, lse)
     _check(q, k, v, kpos, pos)
     B, KV, G, hd = q.shape
     Sc = k.shape[1]
@@ -90,6 +97,20 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_decode.launches = 0
+
+
+def _meta(q, k, pos, window, lse):
+    """The meta branch: the kernel's empty output (and lse), reported."""
+    B, KV, G, hd = q.shape
+    Sc = k.shape[1]
+    out = torch.empty((B, KV, G, hd), dtype=q.dtype, device=q.device)
+    lse_t = (torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+             if lse else None)
+    cost = kernel_cost.flash_decode(
+        B, KV, G, hd, Sc, kernel_cost.decode_slots(Sc, pos, window),
+        q.element_size(), k.element_size(), lse)
+    return kernel_cost.on_meta("flash_decode", cost,
+                               (out, lse_t) if lse else out)
 
 
 def flash_decode_sharded(q: torch.Tensor, ks, vs, kposs, pos: int, *,

@@ -1,5 +1,8 @@
 """Router for the fused masked-pool + L2-normalise epilogue: the CUDA kernel
-for CUDA tensors, the plain PyTorch version for CPU tensors.  No fallback."""
+for CUDA tensors, the plain PyTorch version for CPU tensors.  No fallback.
+Meta tensors (the dry run) get the kernel's empty output, and the call is
+reported to the cost mode with its work (``roofline.kernel_cost``), every
+token taken as unmasked; the launch counter does not move."""
 from __future__ import annotations
 
 import threading
@@ -8,6 +11,7 @@ import torch
 
 from repro_torch.kernels import SERVING_BWD_ITEM, build, refuse_grad
 from repro_torch.kernels.pool_norm.ref import pool_norm_ref
+from repro_torch.roofline import kernel_cost
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 12288          # CLS keeps the pooled row in 48 KB of shared memory
@@ -22,6 +26,13 @@ def pool_norm(h: torch.Tensor, mask: torch.Tensor,
     if h.device.type == "cpu":
         return pool_norm_ref(h, mask, pool)
     refuse_grad("pool_norm", SERVING_BWD_ITEM, h, mask)
+    if h.device.type == "meta":
+        B, S, D = h.shape
+        cost = kernel_cost.pool_norm(B, S, D, h.element_size(), pool,
+                                     B * S if pool == "mean" else B)
+        return kernel_cost.on_meta(
+            "pool_norm", cost,
+            torch.empty((B, D), dtype=torch.float32, device=h.device))
     if h.device.type != "cuda":
         raise ValueError(f"pool_norm: no route for device {h.device}")
     if h.dtype not in _DTYPES:

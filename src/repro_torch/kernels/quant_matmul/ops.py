@@ -2,7 +2,10 @@
 tensors, the plain PyTorch versions for CPU tensors.
 
 There is no fallback: a CUDA tensor the kernel does not take raises, and a
-kernel that fails to build or launch raises.
+kernel that fails to build or launch raises.  Meta tensors (the dry run)
+get empty outputs of the kernels' shapes and dtypes, and each call is
+reported to the cost mode with its work (``roofline.kernel_cost``); the
+launch counters do not move.
 
 - ``quant_matmul(x, w8, scale)``: the weight-only projection of the
   ``int8`` policy (one kernel launch).
@@ -21,6 +24,7 @@ from repro_torch.kernels.quant_matmul.ref import (_check_int8,
                                                   quant_matmul_ref,
                                                   quantize_activations,
                                                   w8a8_matmul_ref)
+from repro_torch.roofline import kernel_cost
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # an int32 sum of K products of two int8 values in [-127, 127] is exact
@@ -85,6 +89,13 @@ def quant_matmul(x: torch.Tensor, w8: torch.Tensor,
     if x.device.type == "cpu":
         return quant_matmul_ref(x, w8, scale)
     refuse_grad("quant_matmul", SERVING_BWD_ITEM, x, scale)
+    if x.device.type == "meta":
+        x2, _ = _rows(x)
+        (M, K), N = x2.shape, w8.shape[1]
+        cost = kernel_cost.quant_matmul(M, K, N, x.element_size())
+        return kernel_cost.on_meta(
+            "quant_matmul", cost,
+            torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device))
     _check_weight(x, w8, scale, "quant_matmul")
     if x.dtype not in _DTYPES:
         raise TypeError(f"quant_matmul: dtype {x.dtype} not supported "
@@ -113,6 +124,13 @@ def quantize_rows(x: torch.Tensor):
     if x.device.type == "cpu":
         return quantize_activations(x)
     refuse_grad("quantize_rows", SERVING_BWD_ITEM, x)
+    if x.device.type == "meta":
+        x2, _ = _rows(x)
+        M, K = x2.shape
+        return kernel_cost.on_meta(
+            "quantize_rows", kernel_cost.quantize_rows(M, K, x.element_size()),
+            (torch.empty(x.shape, dtype=torch.int8, device=x.device),
+             torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)))
     if x.device.type != "cuda":
         raise ValueError(f"quantize_rows: no route for device {x.device}")
     if x.dtype not in _DTYPES:
@@ -143,6 +161,14 @@ def w8a8_matmul(x8: torch.Tensor, w8: torch.Tensor, x_scale: torch.Tensor,
     if x8.device.type == "cpu":
         return w8a8_matmul_ref(x8, w8, x_scale, w_scale, out_dtype)
     refuse_grad("w8a8_matmul", SERVING_BWD_ITEM, x_scale, w_scale)
+    if x8.device.type == "meta":
+        x2, _ = _rows(x8)
+        (M, K), N = x2.shape, w8.shape[1]
+        return kernel_cost.on_meta(
+            "w8a8_matmul",
+            kernel_cost.w8a8_matmul(M, K, N, torch.finfo(out_dtype).bits // 8),
+            torch.empty((*x8.shape[:-1], N), dtype=out_dtype,
+                        device=x8.device))
     _check_int8(x8, "activations")
     _check_weight(x8, w8, w_scale, "w8a8_matmul")
     if out_dtype not in _DTYPES:

@@ -5,7 +5,10 @@ Under autograd (grad mode on and x or the scale requiring grad) the call
 goes through ``RMSNormFn``: the forward kernel and the backward kernel
 (``rmsnorm_bwd``) on the card, ``rmsnorm_ref`` and ``rmsnorm_bwd_ref`` on
 the CPU.  ``rmsnorm.launches`` counts forward launches and
-``rmsnorm_bwd.launches`` backward ones."""
+``rmsnorm_bwd.launches`` backward ones.  Meta tensors (the dry run) get
+empty outputs of the kernels' shapes and dtypes, and the call is reported
+to the cost mode with its work (``roofline.kernel_cost``); the launch
+counters do not move."""
 from __future__ import annotations
 
 import threading
@@ -14,6 +17,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+from repro_torch.roofline import kernel_cost
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROWS = 2 ** 31 - 1            # at most a block a row, on grid.x
@@ -31,7 +35,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         return RMSNormFn.apply(x, scale, eps)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
+    if x.device.type == "meta":
+        return _meta_forward(x)
     return _forward(x, scale, eps)
+
+
+def _meta_forward(x: torch.Tensor) -> torch.Tensor:
+    D = x.shape[-1]
+    cost = kernel_cost.rmsnorm(x.numel() // max(D, 1), D, x.element_size())
+    return kernel_cost.on_meta(
+        "rmsnorm", cost, torch.empty(x.shape, dtype=x.dtype, device=x.device))
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -89,6 +102,14 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     rows in fp32, in a fixed order), ``rmsnorm_bwd_ref`` on CPU ones."""
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, scale, dy, eps)
+    if x.device.type == "meta":
+        D = x.shape[-1]
+        cost = kernel_cost.rmsnorm_bwd(x.numel() // max(D, 1), D,
+                                       x.element_size())
+        return kernel_cost.on_meta(
+            "rmsnorm_bwd", cost,
+            (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+             torch.empty((D,), dtype=torch.float32, device=x.device)))
     _check(x, scale)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
@@ -125,6 +146,8 @@ class RMSNormFn(torch.autograd.Function):
         ctx.eps = eps
         if x.device.type == "cpu":
             return rmsnorm_ref(x, scale, eps)
+        if x.device.type == "meta":
+            return _meta_forward(x)
         return _forward(x, scale, eps)
 
     @staticmethod

@@ -6,7 +6,9 @@ through ``SSMScanFn``: on the card the forward kernel, which also saves the
 state entering every ``CHUNK``-step chunk, then the backward kernel
 (``ssm_scan_bwd``); on the CPU ``ssm_scan_ref`` and ``ssm_scan_bwd_ref``.
 ``ssm_scan.launches`` counts forward launches and ``ssm_scan_bwd.launches``
-backward ones."""
+backward ones.  Meta tensors (the dry run) get empty outputs of the
+kernels' shapes and dtypes, and the call is reported to the cost mode with
+its work (``roofline.kernel_cost``); the launch counters do not move."""
 from __future__ import annotations
 
 import threading
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+from repro_torch.roofline import kernel_cost
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZE = 16                   # N: the state lives in registers
@@ -45,6 +48,8 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         return SSMScanFn.apply(x, dt, Bm, Cm, A)
     if x.device.type == "cpu":
         return ssm_scan_ref(x, dt, Bm, Cm, A)
+    if x.device.type == "meta":
+        return _meta_forward(x, dt, Bm, Cm, A, False)[:2]
     return _forward(x, dt, Bm, Cm, A, False)[:2]
 
 
@@ -74,6 +79,21 @@ def _check(x, dt, Bm, Cm, A, what: str) -> None:
     if N != STATE_SIZE:
         raise ValueError(f"{what}: state size {N}, the kernel takes "
                          f"{STATE_SIZE}")
+
+
+def _meta_forward(x, dt, Bm, Cm, A, states: bool):
+    """The forward's meta branch: ``_forward``'s copies of its inputs and
+    its empty outputs, reported."""
+    x, dt, Bm, Cm, A = (t.contiguous() for t in (x, dt, Bm, Cm, A))
+    Bsz, S, DI = x.shape
+    N = A.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((Bsz, S, DI), **f32)
+    h = torch.empty((Bsz, DI, N), **f32)
+    hs = torch.empty((Bsz, -(-S // CHUNK), DI, N), **f32) if states else None
+    cost = kernel_cost.ssm_scan(Bsz, S, DI, N, x.element_size(), states)
+    return kernel_cost.on_meta("ssm_scan", cost,
+                               (y, h, hs, (x, dt, Bm, Cm, A)))
 
 
 def _forward(x, dt, Bm, Cm, A, states: bool):
@@ -116,6 +136,17 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     in x's dtype, the rest in fp32."""
     if x.device.type == "cpu":
         return ssm_scan_bwd_ref(x, dt, Bm, Cm, A, dy, dh_final)
+    if x.device.type == "meta":
+        Bsz, S, DI = x.shape
+        N = A.shape[-1]
+        f32 = dict(dtype=torch.float32, device=x.device)
+        cost = kernel_cost.ssm_scan_bwd(Bsz, S, DI, N, x.element_size(),
+                                        dh_final is not None)
+        return kernel_cost.on_meta(
+            "ssm_scan_bwd", cost,
+            (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+             torch.empty((Bsz, S, DI), **f32), torch.empty((Bsz, S, N), **f32),
+             torch.empty((Bsz, S, N), **f32), torch.empty((DI, N), **f32)))
     _check(x, dt, Bm, Cm, A, "ssm_scan_bwd")
     Bsz, S, DI = x.shape
     N = STATE_SIZE
@@ -169,7 +200,8 @@ class SSMScanFn(torch.autograd.Function):
             y, h = ssm_scan_ref(x, dt, Bm, Cm, A)
             ctx.save_for_backward(x, dt, Bm, Cm, A)
         else:
-            y, h, states, inputs = _forward(x, dt, Bm, Cm, A, True)
+            run = _meta_forward if x.device.type == "meta" else _forward
+            y, h, states, inputs = run(x, dt, Bm, Cm, A, True)
             ctx.save_for_backward(*inputs, states)
         return y, h
 

@@ -84,6 +84,9 @@ class PerfFlags:
     # no FSDP specs).  Executing that placement across cards is not ported
     # yet: the serve-step builders raise when it would split a weight.
     serve_tp_only: bool = False
+    # the dry run's decode cache (launch/dryrun.py): fp32 when on, else
+    # bf16 (the reference's flag; the LM backend's cache is fp32).
+    cache_f32: bool = False
 
 
 FLAGS = PerfFlags()

@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax_or_repro():
               "models.encdec", "steps.serve", "launch.mesh",
               "parallel.sharding", "configs.qwen2_72b", "steps.train",
               "steps.optim", "steps.checkpoint", "steps.inputs",
-              "launch.train"):
+              "launch.train", "launch.dryrun", "roofline.analysis",
+              "roofline.op_cost", "roofline.kernel_cost"):
         assert f"repro_torch.{m}" in mods
     for k in ("rmsnorm", "flash_decode", "ssm_scan"):
         for part in ("ops", "ref"):

@@ -163,6 +163,21 @@ def _variants_module():
     spec.loader.exec_module(mod)
     return mod
 
+
+class _OtherDevice(torch.Tensor):
+    """A tensor that says it lies on an XLA device: no backend behind it,
+    and no data (any op on it raises)."""
+
+    @staticmethod
+    def __new__(cls, shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device="xla")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a tensor with no backend")
+
+
 class TestRouting:
     def test_cpu_tensors_take_the_plain_version(self):
         q, k, v = (torch.from_numpy(x) for x in _attn_inputs(2, 4, 2, 9, 16))
@@ -182,12 +197,13 @@ class TestRouting:
         assert pool_norm.launches == pn_before
 
     def test_other_devices_raise_instead_of_falling_back(self):
-        q = torch.empty((1, 2, 4, 16), device="meta")
+        # a device with no route (the meta device has one since the dry
+        # run: the kernel's empty outputs, tests/test_torch_dryrun.py)
+        q = _OtherDevice((1, 2, 4, 16))
         with pytest.raises(ValueError, match="no route"):
             flash_attention(q, q, q)
         with pytest.raises(ValueError, match="no route"):
-            pool_norm(torch.empty((1, 4, 8), device="meta"),
-                      torch.empty((1, 4), device="meta"))
+            pool_norm(_OtherDevice((1, 4, 8)), _OtherDevice((1, 4)))
 
     def test_build_module_imports_nothing_gpu_only(self):
         code = ("import sys; import repro_torch.kernels.build as b; "
