@@ -143,29 +143,35 @@ non-zero:
            step.  No speed across cards is claimed.
   train    stablelm-1.6b (24 layers, d 2048, 32 heads, d_ff 5632, vocab
            100352: 1.644 B params, fp32 weights, gradients and AdamW
-           moments, 26.3 GB), then hymba-1.5b (32 layers, d 1600, attention
+           moments, 26.3 GB), hymba-1.5b (32 layers, d 1600, attention
            over 25 heads on 5 KV heads beside a mamba mixer of d_inner
-           3200, d_ff 5504, vocab 32001: 1.662 B params, 26.6 GB), each at
-           its published width and depth and alone on the card, through
-           steps/train.py's build_train_step at B 8 x S 512, every layer
-           rematerialised: (a) one step's loss and gradients through the
-           kernels against the plain versions in fp32 compute (loss within
-           1e-5 relative, every gradient leaf at cosine >= 0.9999); (b) 20
-           steps in bf16 compute at lr 3e-4 on the zipf TokenStream, launch
-           counts zeroed just before and read just after (per step,
-           stablelm: 2 x 24 flash_attention, 24 flash_attention_bwd, 97
-           rmsnorm, 49 rmsnorm_bwd; hymba: 2 x 32 flash_attention and
-           ssm_scan, 32 flash_attention_bwd and ssm_scan_bwd, 129 rmsnorm,
-           65 rmsnorm_bwd; every other kernel none); the mean loss of the
-           last 5 below the first 5's;
-           ms a step by CUDA events, the host's enqueue time a step,
-           tokens/s, the model flops (6 N tokens, N the active params:
-           roofline.model_flops) over the step time at the bf16 peak, peak
-           memory; then one traced step's five largest device operations,
-           its wall, device busy time and idle share and its largest
-           kernels; (c) launch/train.py at the smoke
-           config: 3 steps, a checkpoint and 3 resumed steps against 6
-           straight ones (losses within 1e-5, params within 1e-6).
+           3200, d_ff 5504, vocab 32001: 1.662 B params, 26.6 GB),
+           whisper-tiny (4 + 4 layers, d 384, 512 decoder tokens over 1500
+           stub frames: 0.056 B), internvl2-2b (24 layers, d 2048, 256 stub
+           patches before 256 tokens: 1.889 B) and granite-moe-3b-a800m
+           (32 layers, d 1536, 40 experts of d_ff 512, top 8: 3.374 B),
+           each at its published width and depth and alone on the card,
+           through steps/train.py's build_train_step at B 8 x S 512 on
+           steps/inputs.train_stream's batches, every decoder layer
+           rematerialised.  First the step is traced on the meta device
+           (roofline.op_cost: its kernel calls, argument and peak temp
+           bytes, printed); then (a) one step's loss and gradients through
+           the kernels against the plain versions in fp32 compute (loss
+           within 1e-5 relative, every gradient leaf at cosine >= 0.9999;
+           granite also reports the routes that differ between the two and
+           the share of assignments dropped); (b) 20 steps in bf16 compute
+           at lr 3e-4, launch counts zeroed just before and read just
+           after, each kernel's equal to the meta trace's calls x 20 (every
+           other kernel none); the mean loss of the last 5 below the first
+           5's; granite's MoE aux loss a step; ms a step by CUDA events,
+           the host's enqueue time a step, tokens/s, the model flops (6 N
+           tokens, N the active params: roofline.model_flops) over the step
+           time at the bf16 peak, peak memory and the meta trace's argument
+           + temp bytes over it; then one traced step's five largest device
+           operations, its wall, device busy time and idle share and its
+           largest kernels; (c) launch/train.py at the smoke config: 3
+           steps, a checkpoint and 3 resumed steps against 6 straight ones
+           (losses within 1e-5, params within 1e-6).
   dryrun   the dry run (src/repro_torch/launch/dryrun.py's tracing on the
            meta device) against the card, for three steps: stablelm-1.6b's
            train step at B 8 x S 512, hymba-1.5b's first decode step at the
@@ -308,11 +314,14 @@ MESH_POSITIONS = 4
 MESH_ARCH, MESH_B, MESH_CACHE, MESH_PROMPTS, MESH_NEW = (
     "qwen2-72b", 4, 256, (200, 40), 16)
 # the train phase: stablelm-1.6b, the reference's default training model,
-# and hymba-1.5b (attention and mamba heads in parallel), each at its
-# published width and depth (1.644 B and 1.662 B params), B 8 x S 512, bf16
+# hymba-1.5b (attention and mamba heads in parallel), whisper-tiny (the
+# encoder-decoder), internvl2-2b (256 patches before the text) and
+# granite-moe-3b-a800m (40 experts, top 8), each at its published width and
+# depth (1.644, 1.662, 0.056, 1.889 and 3.374 B params), B 8 x S 512, bf16
 # compute, AdamW at lr 3e-4 for TRAIN_STEPS steps on the zipf TokenStream;
 # the checkpoint resume runs on stablelm's smoke config
-TRAIN_ARCHS = ("stablelm-1.6b", "hymba-1.5b")
+TRAIN_ARCHS = ("stablelm-1.6b", "hymba-1.5b", "whisper-tiny", "internvl2-2b",
+               "granite-moe-3b-a800m")
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = (
     TRAIN_ARCHS[0], 8, 512, 20, 3e-4)
 TRAIN_LOSS_REL, TRAIN_GRAD_COSINE = 1e-5, 0.9999
@@ -2704,16 +2713,22 @@ def phase_mesh(args, dev) -> dict:
             "decode": dec, "launches": counts}
 
 
-def leaf_cosines(a, b) -> dict:
+def leaf_cosines(a, b, piece: int = 1 << 26) -> dict:
     """{leaf path: cosine} of two gradient trees, each leaf flattened and
-    taken in float64."""
+    summed in float64, ``piece`` elements at a time (a granite expert
+    leaf is 4 GB in fp32: whole, its two float64 copies would take 16)."""
     from repro_torch.steps.checkpoint import _flatten
 
     out = {}
     for (key, x), (_, y) in zip(_flatten(a), _flatten(b)):
-        x, y = x.double().flatten(), y.double().flatten()
-        den = (x.norm() * y.norm()).item()
-        out[key] = (x @ y).item() / den if den > 0 else (
+        xy = xx = yy = 0.0
+        for xs, ys in zip(x.flatten().split(piece), y.flatten().split(piece)):
+            xs, ys = xs.double(), ys.double()
+            xy += (xs @ ys).item()
+            xx += (xs @ xs).item()
+            yy += (ys @ ys).item()
+        den = math.sqrt(xx) * math.sqrt(yy)
+        out[key] = xy / den if den > 0 else (
             1.0 if x.abs().max().item() == y.abs().max().item() == 0 else 0.0)
     return out
 
@@ -2745,37 +2760,29 @@ def train_resume(dev) -> dict:
             and int(o_res["step"]) == 6}
 
 
-def train_counts(cfg) -> dict:
-    """Kernel launches one remat'd train step of ``cfg`` makes: each
-    layer's attention, norms and scan forward twice (the forward, then its
-    recompute in the backward) and backward once, and the final norm once
-    each way."""
-    L = cfg.num_layers
-    want = {"rmsnorm": 2 * 2 * L + 1, "rmsnorm_bwd": 2 * L + 1}
-    if cfg.has_attention:
-        want.update(flash_attention=2 * L, flash_attention_bwd=L)
-    if cfg.has_ssm:
-        want.update(ssm_scan=2 * L, ssm_scan_bwd=L)
-    return want
-
-
 def train_arch(dev, arch: str) -> dict:
     """``arch`` at its published width and depth (fp32 weights and AdamW
-    state), B 8 x S 512: (a) one step's loss and gradients through the
-    kernels against the plain versions in fp32 compute; (b) TRAIN_STEPS
-    steps in bf16 compute at lr 3e-4 on the zipf TokenStream, launch counts
-    zeroed just before and read just after, the loss falling, step time by
-    CUDA events, peak memory, then one traced step."""
+    state), B 8 x S 512 (internvl2: 256 patches + 256 tokens; whisper: 512
+    tokens over 1500 frames), its batches from ``inputs.train_stream``.
+    First the train step traced on the meta device (roofline.op_cost:
+    kernel calls, argument and peak temp bytes); then (a) one step's loss
+    and gradients through the kernels against the plain versions in fp32
+    compute (an MoE model also counts the routes that differ between the
+    two and the share of assignments dropped); (b) TRAIN_STEPS steps in
+    bf16 compute at lr 3e-4, launch counts zeroed just before and read
+    just after, each kernel's equal to the meta trace's calls x
+    TRAIN_STEPS on the card, the loss falling, step time by CUDA events,
+    peak memory against the meta trace's, then one traced step."""
     import gc
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.workload import TokenStream, TrainBatchSpec
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import api
-    from repro_torch.steps import optim
+    from repro_torch.roofline import op_cost
+    from repro_torch.steps import inputs, optim
     from repro_torch.steps.train import (build_loss_fn, build_train_step,
                                          value_and_grad)
 
@@ -2786,42 +2793,81 @@ def train_arch(dev, arch: str) -> dict:
         cfg, B, S = cfg.smoke(), 2, 32
     shape = ShapeConfig("train", S, B, "train")
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    params = api.init_params(cfg, torch.Generator(dev).manual_seed(0),
-                             device=dev)
-    n_params = sum(p.numel() for p in optim.tree_leaves(params))
-    stream = TokenStream(TrainBatchSpec(B, S, cfg.vocab_size), seed=0)
+    stream = inputs.train_stream(cfg, shape, seed=0)
     out = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "heads": cfg.num_heads, "d_ff": cfg.d_ff,
-           "vocab": cfg.vocab_size, "params": n_params, "B": B, "S": S}
+           "vocab": cfg.vocab_size, "B": B, "S": S}
+    if cfg.cross_attention:
+        out.update(encoder_layers=cfg.encoder_layers, frames=cfg.num_frames)
+    if cfg.frontend == "vision":
+        out.update(patches=cfg.num_patches, text_tokens=inputs.text_len(
+            cfg, shape))
+    if cfg.is_moe:
+        out.update(experts=cfg.num_experts, experts_per_token=(
+            cfg.experts_per_token))
+
+    # the step traced on meta: what (b) must launch, and its memory
+    step = build_train_step(cfg, shape,
+                            opt_cfg=optim.AdamWConfig(lr=TRAIN_LR))
+    ps = api.param_shapes(cfg)
+    margs = (ps, optim.init(ps), {k: torch.as_tensor(v, device="meta")
+                                  for k, v in next(stream).items()})
+    stream.restore(0)
+    cost = op_cost.analyse_step(step, *margs)
+    roof = roofline.analyse(cost, 1, roofline.model_flops(cfg, shape, ps))
+    meta_calls = dict(sorted(cost.kernel_calls.items()))
+    arg_bytes = op_cost.tree_bytes(margs)
+    del ps, margs
+    out["meta"] = {"kernel_calls": meta_calls, "argument_bytes": arg_bytes,
+                   "temp_bytes": cost.peak_temp_bytes, "ops": cost.ops,
+                   "bytes": cost.bytes, "flops": cost.flops,
+                   "bound_ms": roof.bound_s * 1e3, "dominant": roof.dominant}
+    print(f"[chip_smoke] train {cfg.name}: meta trace "
+          f"{json.dumps(out['meta'])}", flush=True)
+
+    params = api.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    out["params"] = sum(p.numel() for p in optim.tree_leaves(params))
 
     # (a) kernels against plain versions, fp32 compute, before the optimizer
     batch = next(stream)
     loss32 = build_loss_fn(cfg, shape, compute_dtype=torch.float32)
-    (lk, _), gk = value_and_grad(loss32, params, batch)
-    with plain_kernels():
+    kr, kk, pr, pk = [], [], [], []
+    with moe_spy(routes=kr, keeps=kk):
+        (lk, _), gk = value_and_grad(loss32, params, batch)
+    with plain_kernels(), moe_spy(routes=pr, keeps=pk):
         (lp, _), gp = value_and_grad(loss32, params, batch)
     cos = leaf_cosines(gk, gp)
+    del gk, gp
     worst = min(cos, key=cos.get)
     rel = abs(lk.item() - lp.item()) / abs(lp.item())
     out["fp32_kernels_vs_plain"] = {
         "loss_kernels": lk.item(), "loss_plain": lp.item(), "loss_rel": rel,
         "min_grad_cosine": cos[worst], "min_grad_cosine_leaf": worst,
         "leaves": len(cos)}
+    if cfg.is_moe:
+        # the forward's routes (the first num_layers recorded; the rest are
+        # the backward's recompute), one a token and layer
+        fwd = cfg.num_layers
+        out["fp32_kernels_vs_plain"].update(
+            routes_differ=sum(int((a != b).any(-1).sum().item())
+                              for a, b in zip(kr[:fwd], pr[:fwd])),
+            routes=sum(a[..., 0].numel() for a in kr[:fwd]),
+            dropped_share_kernels=dropped_share(kk[:fwd]),
+            dropped_share_plain=dropped_share(pk[:fwd]))
+    del kr, kk, pr, pk
     require(rel <= TRAIN_LOSS_REL, f"fp32 loss kernels vs plain {rel}")
     require(cos[worst] >= TRAIN_GRAD_COSINE,
             f"gradient {worst}: cosine {cos[worst]} kernels vs plain")
-    del gk, gp
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
 
     # (b) the main path: bf16 compute, AdamW, counted
     opt = optim.init(params)
-    step = build_train_step(cfg, shape,
-                            opt_cfg=optim.AdamWConfig(lr=TRAIN_LR))
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    losses, times, enqueue = [], [], []
+    losses, aux, times, enqueue = [], [], [], []
     sync()
     reset_launch_counts()                 # the train path starts here
     for _ in range(TRAIN_STEPS):
@@ -2839,16 +2885,15 @@ def train_arch(dev, arch: str) -> dict:
         else:
             times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
+        aux.append(float(m["moe_aux"]))
     sync()
     counts = launch_counts()              # ... and ends here
     out["launches"] = {k: v for k, v in counts.items() if v}
-    want = train_counts(cfg)
-    out["launches_per_step_want"] = want
     if cuda:
         for name, n in counts.items():
-            require(n == want.get(name, 0) * TRAIN_STEPS,
-                    f"{name}: {n} launches, want "
-                    f"{want.get(name, 0) * TRAIN_STEPS}")
+            want = meta_calls.get(name, 0) * TRAIN_STEPS
+            require(n == want, f"{name}: {n} launches, want {want} (the "
+                               f"meta trace's calls x {TRAIN_STEPS})")
     first, last = (statistics.mean(losses[:5]), statistics.mean(losses[-5:]))
     steady = statistics.median(times[2:])
     tokens = B * S
@@ -2867,6 +2912,11 @@ def train_arch(dev, arch: str) -> dict:
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if cuda else None),
         "grad_norm_last": float(m["grad_norm"])})
+    if cfg.is_moe:
+        out["moe_aux"] = aux
+    if cuda:
+        out["argument_plus_temp_over_allocated"] = (
+            (arg_bytes + cost.peak_temp_bytes) / out["peak_memory_bytes"])
     require(out["finite"], "a non-finite loss")
     require(last < first, f"loss did not fall: first-5 mean {first}, "
                           f"last-5 mean {last}")
@@ -2894,6 +2944,7 @@ def train_arch(dev, arch: str) -> dict:
         out["traced_step"] = {
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms, "kernels": len(kernels),
+            "bound_over_busy": out["meta"]["bound_ms"] / busy_ms,
             "top_kernels": [{"name": n[:80], "ms": d / 1e3}
                             for n, d in sorted(by_name.items(),
                                                key=lambda kv: -kv[1])[:6]]}

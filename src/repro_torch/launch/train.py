@@ -21,10 +21,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.data.workload import TokenStream, TrainBatchSpec
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import api
-from repro_torch.steps import checkpoint, optim
+from repro_torch.steps import checkpoint, inputs, optim
 from repro_torch.steps.train import build_train_step
 
 
@@ -47,14 +46,7 @@ def train(arch: str, steps: int, batch: int, seq: int, smoke: bool = True,
     print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, "
           f"batch={batch} seq={seq} steps={steps} on {dev}")
 
-    extra = {}
-    if cfg.frontend == "vision":
-        extra["patches"] = (cfg.num_patches, cfg.d_model)
-    if cfg.frontend == "audio":
-        extra["frames"] = (cfg.num_frames, cfg.d_model)
-    text = seq - cfg.num_patches if cfg.frontend == "vision" else seq
-    stream = TokenStream(TrainBatchSpec(batch, text, cfg.vocab_size),
-                         seed=seed, extra=extra)
+    stream = inputs.train_stream(cfg, shape, seed)
 
     start = 0
     if resume:

@@ -4,7 +4,8 @@
 tensors on the meta device: shapes and dtypes, no memory.  For the stubbed
 modality frontends the specs are the stub: precomputed patch or frame
 embeddings of the right shape.  ``cache_specs`` is the decode cache on the
-meta device, ``make_batch`` a random batch matching the specs.
+meta device, ``make_batch`` a random batch matching the specs, and
+``train_stream`` the zipf token stream a family's train step consumes.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.data.workload import TokenStream, TrainBatchSpec
 from repro_torch.models import encdec, lm
 
 
@@ -73,3 +75,19 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig,
                               device=gdev, dtype=s.dtype)
         out[name] = t.to(device or gdev)
     return out
+
+
+def train_stream(cfg: ModelConfig, shape: ShapeConfig,
+                 seed: int = 0) -> TokenStream:
+    """The zipf ``TokenStream`` of a train ``shape``: ``text_len`` tokens
+    and labels a row, plus the stubbed frontend's input, ``frames`` or
+    ``patches`` (numpy fp32 standard normals), so each batch has
+    ``input_specs``' keys and shapes."""
+    extra = {}
+    if cfg.frontend == "vision":
+        extra["patches"] = (cfg.num_patches, cfg.d_model)
+    if cfg.frontend == "audio":
+        extra["frames"] = (cfg.num_frames, cfg.d_model)
+    spec = TrainBatchSpec(shape.global_batch, text_len(cfg, shape),
+                          cfg.vocab_size)
+    return TokenStream(spec, seed=seed, extra=extra)

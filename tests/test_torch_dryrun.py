@@ -174,11 +174,18 @@ def test_cli_records_every_shape_and_each_mesh_error(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "hymba-1.5b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "whisper-tiny",
+                                  "internvl2-2b"])
 def test_train_step_on_meta_calls_each_kernel_as_the_card_launches(arch):
-    """A remat'd train step: each layer's attention, norms and scan
-    forward twice (the forward and its recompute), backward once, the
-    final norm once each way (chip_smoke.train_counts)."""
+    """A remat'd train step, counted by hand.  A decoder-only model: each
+    layer's attention, norms and scan forward twice (the forward and its
+    recompute), backward once, the final norm once each way (internvl2's
+    patches add no call).  whisper-tiny: the encoder is not rematerialised
+    (L_e attention calls each way); each decoder layer's self and cross
+    attention run forward twice and backward once, so L_e + 4 L_d forward
+    and L_e + 2 L_d backward calls; layernorm, so no rmsnorm.  The card's
+    train phase (chip_smoke.train_arch) takes its expected launches from
+    this trace."""
     cfg = get_config(arch).smoke()
     shape = ShapeConfig("smoke", 32, 2, "train")
     ps = api.param_shapes(cfg)
@@ -186,11 +193,16 @@ def test_train_step_on_meta_calls_each_kernel_as_the_card_launches(arch):
     c = op_cost.analyse_step(build_train_step(cfg, shape), ps,
                              optim.init(ps), inputs.input_specs(cfg, shape))
     L = cfg.num_layers
-    want = {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1}
-    if cfg.has_attention:
-        want.update(flash_attention=2 * L, flash_attention_bwd=L)
-    if cfg.has_ssm:
-        want.update(ssm_scan=2 * L, ssm_scan_bwd=L)
+    if cfg.cross_attention:
+        Le = cfg.encoder_layers
+        want = {"flash_attention": Le + 4 * L,
+                "flash_attention_bwd": Le + 2 * L}
+    else:
+        want = {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1}
+        if cfg.has_attention:
+            want.update(flash_attention=2 * L, flash_attention_bwd=L)
+        if cfg.has_ssm:
+            want.update(ssm_scan=2 * L, ssm_scan_bwd=L)
     assert c.kernel_calls == want
     assert not any(kernels.launch_counts().values())
 
