@@ -126,10 +126,11 @@ non-zero:
            host clock, device busy time and idle share of encode, prefill
            and one decode step.
   mesh     4 logical devices placed round-robin on the visible cards
-           (printed on a line of its own).  (a) bge-large-zh-v1.5's embed
-           tier through ShardedEmbedderBackend fanned out over them, fp32
-           and bf16, 24 queries of 8-96 tokens, against the one-device
-           backend on the same queries: fp32 within 1e-5 max-abs, bf16 at
+           (printed on a line of its own) for (a) and (b).  (a)
+           bge-large-zh-v1.5's embed tier through ShardedEmbedderBackend
+           fanned out over them, fp32 and bf16, 24 queries of 8-96
+           tokens, against the one-device backend on the same queries:
+           fp32 within 1e-5 max-abs, bf16 at
            cosine 0.999.  (b) qwen2-72b at its published width, 24 of 80
            layers on bf16 weights, fp32 compute and cache, through
            steps/serve.py's builders on a (1, 4) mesh with
@@ -137,10 +138,34 @@ non-zero:
            B 4, after a 200-token prompt (shards 0-2 full, shard 3 the
            owner) and a 40-token one (shards 1-3 empty), 16 greedy decode
            steps, against the same steps on the whole cache: tokens equal,
-           k and v within 1e-6 of their largest magnitude.  Launch counts
-           are zeroed just before the fanned-out and the sharded runs and
-           read just after; one flash_decode launch a shard a layer a
-           step.  No speed across cards is claimed.
+           k and v within 1e-6 of their largest magnitude.  (c) The
+           decoders served over (data 2, model 4): 8 logical positions
+           round-robin on the visible cards, serve_tp_only (weights over
+           model, the batch over data), bf16 weights, fp32 compute and
+           cache, through steps/serve.py's builders on trees placed by
+           serve_shardings: qwen2-72b (24 layers), granite-moe-3b-a800m
+           and hymba-1.5b at full width, B 8, prompts of 64 and 200 tokens,
+           16 decode steps fed the whole run's tokens; qwen2 again under
+           decode_shard_map and at B 1 (its cache's sequence over all 8).
+           The whole (mesh-free) steps run first, their logits kept on the
+           host; then the tree is placed leaf by leaf, each whole leaf
+           freed, and the mesh steps run.  Held: each step's logits within
+           1e-4 of their largest magnitude and the same greedy tokens,
+           prefill k and v within 1e-5 (or within twice the whole model's
+           own spread, its prefill of each half of the batch against the
+           whole batch's, where that spread passes 1e-5), granite's routes
+           (and kept assignments) differing on at most 0.01% (logits held
+           on the rows whose routes all match), the summed kernel_cost
+           flops of every launch over the positions equal to the whole
+           run's for flash_attention and flash_decode (qwen2 and granite,
+           B 8) and ssm_scan (hymba), and each kernel's launches equal to
+           a meta trace of the same mesh steps on 8 meta positions;
+           printed: the other flop ratios, k and v errors by layer, whole
+           and mesh ms a decode step (a run of 4 steps), peak memory.
+           Launch counts are zeroed just before the fanned-out, the
+           sharded and each counted mesh run and read just after; one
+           flash_decode launch a shard a layer a step in (b).  No speed
+           across cards is claimed.
   train    stablelm-1.6b (24 layers, d 2048, 32 heads, d_ff 5632, vocab
            100352: 1.644 B params, fp32 weights, gradients and AdamW
            moments, 26.3 GB), hymba-1.5b (32 layers, d 1600, attention
@@ -313,6 +338,30 @@ CHAOS_WAVES, CHAOS_WAVE, CHAOS_FAIL, CHAOS_CORRUPT = 4, 8, {1}, {3}
 MESH_POSITIONS = 4
 MESH_ARCH, MESH_B, MESH_CACHE, MESH_PROMPTS, MESH_NEW = (
     "qwen2-72b", 4, 256, (200, 40), 16)
+# the mesh phase's tensor-parallel serve part: (data 2, model 4) logical
+# positions round-robin on the visible cards, serve_tp_only (weights over
+# model, the batch over data), bf16-resident weights, fp32 compute and
+# cache; B 8, prompts of 64 and 200 tokens, 16 decode steps forced to the
+# whole run's tokens; qwen2-72b (24 of 80 layers) again under
+# decode_shard_map, and at B 1 (its cache's sequence over all 8)
+TP_MESH = (2, 4)
+TP_ARCHS = ("qwen2-72b", "granite-moe-3b-a800m", "hymba-1.5b")
+TP_B, TP_PROMPTS, TP_NEW = 8, (64, 200), 16
+TP_TIMED = 4                         # decode steps of each timing run
+TP_KERNELS = ("flash_attention", "flash_decode", "rmsnorm", "ssm_scan")
+# the bars: logits within 1e-4 of their largest magnitude, prefill k and v
+# within 1e-5, at most 0.01% of granite's routes differing; the kernels
+# whose flops over all positions must equal the whole run's (B 8 cases).
+# Where the whole model's own prefill of each half of the batch already
+# differs from the whole batch's by more than 1e-5 (hymba-1.5b's 32 random
+# layers amplify the card's shape-dependent fp32 summation order to
+# ~2.5e-5), k and v are held within TP_SPREAD times that spread instead.
+# An MoE model has no such spread: its global dispatch takes its capacity
+# from the whole batch, so half a batch is another function
+TP_LOGIT_REL, TP_KV_REL, TP_ROUTE_SHARE, TP_SPREAD = 1e-4, 1e-5, 1e-4, 2.0
+TP_SPLIT = {"qwen2-72b": ("flash_attention", "flash_decode"),
+            "granite-moe-3b-a800m": ("flash_attention", "flash_decode"),
+            "hymba-1.5b": ("ssm_scan",)}
 # the train phase: stablelm-1.6b, the reference's default training model,
 # hymba-1.5b (attention and mamba heads in parallel), whisper-tiny (the
 # encoder-decoder), internvl2-2b (256 patches before the text) and
@@ -2530,15 +2579,15 @@ def profile_lm(dev, arch, rng, sync, acts, trace) -> dict:
     return out
 
 
-def mesh_devices(dev) -> list:
-    """MESH_POSITIONS logical devices placed round-robin on the visible
+def mesh_devices(dev, positions: int = MESH_POSITIONS) -> list:
+    """``positions`` logical devices placed round-robin on the visible
     cards (on the CPU: the CPU each time)."""
     import torch
 
     if dev.type != "cuda":
-        return [dev] * MESH_POSITIONS
+        return [dev] * positions
     n = torch.cuda.device_count()
-    return [torch.device("cuda", i % n) for i in range(MESH_POSITIONS)]
+    return [torch.device("cuda", i % n) for i in range(positions)]
 
 
 def mesh_fanout(dev, devices) -> tuple:
@@ -2592,19 +2641,31 @@ def mesh_fanout(dev, devices) -> tuple:
     return out, counts
 
 
-def mesh_decode(dev, devices) -> tuple:
+def mesh_config(dev, arch: str):
+    """``arch`` at its published width (its depth cut where DEPTH_CUTS
+    says) on the card, its smoke config on the CPU."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if dev.type != "cuda":
+        return cfg.smoke()
+    return cfg.replace(num_layers=DEPTH_CUTS.get(arch, cfg.num_layers))
+
+
+def mesh_decode(dev, devices, params) -> tuple:
     """qwen2-72b at its published width (its depth cut, bf16-resident
     weights, fp32 compute and cache) through steps/serve.py's builders on a
     (1, 4) mesh with ``decode_shard_map``: each prompt's cache split over
     the 4 shards, 16 greedy decode steps, against the same steps on the
-    whole cache.  Returns (summary, launches of the sharded runs)."""
+    whole cache, on ``params`` (the caller's bf16 tree).  Returns (summary,
+    launches of the sharded runs)."""
     import gc
 
     import numpy as np
     import torch
 
     from repro_torch import perf_flags
-    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.configs import ShapeConfig
     from repro_torch.data.workload import make_queries
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import Mesh
@@ -2613,14 +2674,10 @@ def mesh_decode(dev, devices) -> tuple:
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    cfg = get_config(MESH_ARCH)
-    cfg = (cfg.replace(num_layers=DEPTH_CUTS[MESH_ARCH]) if cuda
-           else cfg.smoke())
+    cfg = mesh_config(dev, MESH_ARCH)
     # on the CPU: 80 slots, 4 shards of 20, prompts of 62 and 12 tokens
     slots, prompts = ((MESH_CACHE, MESH_PROMPTS) if cuda
                       else (80, (62, 12)))
-    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
-                        device=dev, dtype=torch.bfloat16)
     mesh = Mesh(devices, (1, MESH_POSITIONS), ("data", "model"))
     shape = ShapeConfig("mesh", slots, MESH_B, "decode")
     kw = dict(cache_dtype=torch.float32, max_len=slots,
@@ -2680,27 +2737,431 @@ def mesh_decode(dev, devices) -> tuple:
                 f"sharded decode after a {prompt}-token prompt differs from "
                 f"the whole cache's: {case}")
         del runs, whole, shd
-    del params
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     return out, counts
 
 
+@contextlib.contextmanager
+def kernel_flops(acc: dict):
+    """Inside: each call of flash_attention, flash_decode, rmsnorm and
+    ssm_scan through models.layers (flash_decode_sharded: one flash_decode
+    a shard) adds its kernel_cost flops to ``acc[name]``: the router's own
+    meta branch on meta copies of its arguments, and for flash_decode the
+    valid slots of its kpos (this run's data, a read from the card)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    def meta(x):
+        return (torch.empty_like(x, device="meta")
+                if isinstance(x, torch.Tensor) else x)
+
+    def costed(name, fn):
+        def spy(*a, **kw):
+            got = []
+
+            def sink(_name, flops, _nbytes):
+                got.append(flops)
+
+            kernel_cost.listen(sink)
+            try:
+                fn(*map(meta, a), **{k: meta(v) for k, v in kw.items()})
+            finally:
+                kernel_cost.unlisten(sink)
+            acc[name] = acc.get(name, 0.0) + sum(got)
+            return fn(*a, **kw)
+        return spy
+
+    def read(q, k, kpos, pos, window, lse):
+        live = (kpos >= 0) & (kpos <= pos)
+        if window:
+            live &= kpos > pos - window
+        B, KV, G, hd = q.shape
+        acc["flash_decode"] = acc.get("flash_decode", 0.0) + \
+            kernel_cost.flash_decode(B, KV, G, hd, k.shape[1],
+                                     int(live.sum()), q.element_size(),
+                                     k.element_size(), lse)[0]
+
+    def decode(fn):
+        def spy(q, k, v, kpos, pos, *, window=0, lse=False):
+            read(q, k, kpos, pos, window, lse)
+            return fn(q, k, v, kpos, pos, window=window, lse=lse)
+        return spy
+
+    def sharded(fn):
+        # one flash_decode (with its lse) a shard, on the shard's device
+        def spy(q, ks, vs, kposs, pos, *, window=0):
+            for k, kp in zip(ks, kposs):
+                read(q, k, kp, pos, window, True)
+            return fn(q, ks, vs, kposs, pos, window=window)
+        return spy
+
+    saved = {name: getattr(L, name)
+             for name in TP_KERNELS + ("flash_decode_sharded",)}
+    try:
+        for name in ("flash_attention", "rmsnorm", "ssm_scan"):
+            setattr(L, name, costed(name, saved[name]))
+        L.flash_decode = decode(saved["flash_decode"])
+        L.flash_decode_sharded = sharded(saved["flash_decode_sharded"])
+        yield acc
+    finally:
+        for name, fn in saved.items():
+            setattr(L, name, fn)
+
+
+def tp_cases(arch: str, cuda: bool) -> list:
+    """(B, prompt tokens, decode_shard_map) of each case."""
+    prompts = TP_PROMPTS if cuda else (12, 28)
+    cases = [(TP_B, p, False) for p in prompts]
+    if arch == "qwen2-72b":
+        cases += [(TP_B, p, True) for p in prompts] + [(1, prompts[-1], True)]
+    return cases
+
+
+def tp_steps(params, cfg, mesh, toks, new, forced, shard_map, sync):
+    """Prefill then ``new`` decode steps through steps/serve.py's builders,
+    fed ``forced`` (steps, B) or, when None, the greedy tokens.  Returns
+    (the logits of the prefill and each step, fed tokens, prefill k and v
+    whole, ms a decode step)."""
+    import torch
+
+    from repro_torch import perf_flags
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.steps import serve
+
+    B, S = toks.shape
+    shape = ShapeConfig("tp", S + new, B, "decode")
+    perf_flags.set_flags(decode_shard_map=shard_map)
+    try:
+        pre = serve.build_prefill_step(cfg, shape, mesh,
+                                       cache_dtype=torch.float32,
+                                       max_len=S + new,
+                                       compute_dtype=torch.float32)
+        step = serve.build_decode_step(cfg, shape, mesh,
+                                       compute_dtype=torch.float32,
+                                       return_logits=True)
+        logits, cache = pre(params, {"tokens": toks})
+        kv = {}
+        if "k" in cache:
+            whole = lm.unshard_cache(cache)
+            kv = {name: whole[name].to("cpu", copy=True)
+                  for name in ("k", "v")}
+            del whole
+        outs, fed = [logits], []
+        tok = logits.argmax(-1).to(torch.int32)
+        sync()
+        t0 = time.perf_counter()
+        for t in range(new):
+            feed = tok if forced is None else forced[t]
+            fed.append(feed)
+            tok, cache, logits = step(params, cache, {"token": feed})
+            outs.append(logits)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / new
+    finally:
+        perf_flags.set_flags(decode_shard_map=False)
+    return ([o.float().cpu() for o in outs], torch.stack(fed), kv, ms)
+
+
+def tp_halves(params, cfg, toks, new, w) -> dict:
+    """The whole steps' own spread: each half of the batch prefilled alone
+    against the whole batch's prefill (the same function for a model
+    without MoE; the card's products take other shapes and may sum in
+    another order)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.steps import serve
+
+    B, S = toks.shape
+    h = B // 2
+    pre = serve.build_prefill_step(cfg, ShapeConfig("tp", S + new, h,
+                                                    "decode"), None,
+                                   cache_dtype=torch.float32,
+                                   max_len=S + new,
+                                   compute_dtype=torch.float32)
+    out = {}
+    for rows in (slice(0, h), slice(h, B)):
+        logits, cache = pre(params, {"tokens": toks[rows]})
+        got = {"logits": logits.float().cpu()}
+        want = {"logits": w["logits"][0][rows]}
+        for name in w["kv"]:
+            got[name] = cache[name].cpu()
+            want[name] = w["kv"][name][:, rows]
+        for name in got:
+            err, mag = _rel_err(got[name], want[name])
+            out[name] = max(out.get(name, 0.0), err / mag)
+    return out
+
+
+def tp_meta_calls(cfg, positions: int, B: int, S: int, new: int,
+                  shard_map: bool) -> dict:
+    """Kernel calls of the mesh's prefill plus ``new`` decode steps, traced
+    on a mesh of meta positions (roofline.op_cost)."""
+    import torch
+
+    from repro_torch import perf_flags
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding
+    from repro_torch.roofline import op_cost
+    from repro_torch.steps import serve
+
+    mesh = Mesh(["meta"] * positions, TP_MESH, ("data", "model"))
+    shape = ShapeConfig("tp", S + new, B, "decode")
+    perf_flags.set_flags(decode_shard_map=shard_map)
+    try:
+        shapes = api.param_shapes(cfg, torch.bfloat16)
+        placed = sharding.shard_tree(
+            shapes, serve.serve_shardings(cfg, shape, mesh, shapes)[0])
+        pre = serve.build_prefill_step(cfg, shape, mesh,
+                                       cache_dtype=torch.float32,
+                                       max_len=S + new,
+                                       compute_dtype=torch.float32)
+        batch = {"tokens": torch.zeros((B, S), dtype=torch.int32,
+                                       device="meta")}
+        calls = op_cost.analyse_step(pre, placed, batch).kernel_calls
+        _, cache = pre(placed, batch)
+        step = serve.build_decode_step(cfg, shape, mesh,
+                                       compute_dtype=torch.float32)
+        dec = op_cost.analyse_step(
+            step, placed, cache,
+            {"token": torch.zeros(B, dtype=torch.int32, device="meta")}
+        ).kernel_calls
+    finally:
+        perf_flags.set_flags(decode_shard_map=False)
+    return {k: calls.get(k, 0) + new * dec.get(k, 0) for k in TP_KERNELS}
+
+
+def tp_route_rows(want: list, got: list, n: int, B: int) -> tuple:
+    """(routes or kept assignments that differ, all of them, batch rows
+    with a difference) of the mesh's records (``n`` a record of the whole
+    run's, one a position) against the whole run's."""
+    import torch
+
+    diff, total, rows = 0, 0, set()
+    for j, g in enumerate(got):
+        w = want[j // n].to(g.device)
+        bad = (g != w)
+        if bad.dim() == 3:                # routes (1, N, K): a token each
+            bad = bad.any(-1)
+        per = bad.shape[-1]
+        diff += int(bad.sum())
+        total += bad.numel()
+        idx = torch.nonzero(bad.reshape(-1)).flatten().tolist()
+        rows.update(i * B // per for i in idx)
+    return diff, total, rows
+
+
+def mesh_tp(dev, devices, arch: str, params) -> tuple:
+    """One family's steps on (data 2, model 4) positions against the same
+    steps on the whole tree, which run first (their logits and tokens kept
+    on the host); then ``params`` is placed over the mesh leaf by leaf,
+    each whole leaf freed (``shard_tree(free=True)``), and the mesh steps
+    run fed the whole run's tokens.  Each case runs twice: once counted
+    (launch counts zeroed just before, read just after; every launch's
+    kernel_cost flops summed) and once timed.  Returns (summary, launches
+    of the counted mesh runs)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import perf_flags
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.workload import make_queries
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.steps import serve
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = mesh_config(dev, arch)
+    new = TP_NEW if cuda else 4
+    cases = tp_cases(arch, cuda)
+    mesh = Mesh(devices, TP_MESH, ("data", "model"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "mesh": mesh.shape,
+           "placement": [str(d) for d in devices],
+           "params": param_count(params), "weights_dtype": "bfloat16",
+           "compute_dtype": "float32", "serve_tp_only": True,
+           "new_tokens": new, "cases": []}
+    whole = {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for B, S, flag in cases:
+            if (B, S) in whole:
+                continue
+            toks = torch.from_numpy(np.stack(make_queries(
+                B, cfg.vocab_size, S, seed=40 + S))).to(dev)
+            routes, keeps, flops = [], [], {}
+            with kernel_flops(flops), moe_spy(routes, keeps):
+                logits, fed, kv, _ = tp_steps(params, cfg, None, toks, new,
+                                              None, False, sync)
+            ms = tp_steps(params, cfg, None, toks, TP_TIMED if cuda else 1,
+                          None, False, sync)[3]
+            whole[(B, S)] = dict(toks=toks, logits=logits, fed=fed, kv=kv,
+                                 routes=[r.cpu() for r in routes],
+                                 keeps=[k.cpu() for k in keeps],
+                                 flops=flops, ms=ms)
+            if B > 1 and not cfg.is_moe:
+                whole[(B, S)]["halves"] = tp_halves(params, cfg, toks, new,
+                                                    whole[(B, S)])
+        if cuda:
+            out["whole_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+        perf_flags.set_flags(serve_tp_only=True)
+        try:
+            psh = serve.serve_shardings(cfg, ShapeConfig(
+                "tp", TP_PROMPTS[0], TP_B, "decode"), mesh, params)[0]
+            placed = sharding.shard_tree(params, psh, free=True)
+            gc.collect()
+            counts, traced = {}, {}
+            for B, S, flag in cases:
+                w = whole[(B, S)]
+                # a step's kernel calls do not depend on the prompt length
+                if (B, flag) not in traced:
+                    traced[(B, flag)] = tp_meta_calls(cfg, mesh.size, B, S,
+                                                      new, flag)
+                expect = traced[(B, flag)]
+                routes, keeps, flops = [], [], {}
+                reset_launch_counts()            # the counted mesh run ...
+                with kernel_flops(flops), moe_spy(routes, keeps):
+                    logits, fed, kv, _ = tp_steps(placed, cfg, mesh,
+                                                  w["toks"], new, w["fed"],
+                                                  flag, sync)
+                sync()
+                after = launch_counts()          # ... ends here
+                counts = {k: counts.get(k, 0) + after[k] for k in after}
+                ms = tp_steps(placed, cfg, mesh, w["toks"],
+                              TP_TIMED if cuda else 1, w["fed"], flag,
+                              sync)[3]
+                case = tp_case(cfg, arch, mesh, B, S, flag, w, logits, kv,
+                               routes, keeps, flops, after, expect)
+                case["whole_decode_ms_per_step"] = w["ms"]
+                case["mesh_decode_ms_per_step"] = ms
+                out["cases"].append(case)
+                emit({"phase": "mesh", "tp_case": case})
+                require(case["held"], f"{arch} on the mesh: {case}")
+        finally:
+            perf_flags.reset_flags()
+    if cuda:
+        out["mesh_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del placed, whole
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, counts
+
+
+def param_count(params) -> int:
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    return sum(t.numel() for t in tree_flatten(params)[0]
+               if isinstance(t, torch.Tensor))
+
+
+def tp_case(cfg, arch, mesh, B, S, flag, w, logits, kv, routes, keeps,
+            flops, launches, expect) -> dict:
+    """One case's figures against the whole run's, and whether the bars of
+    the mesh phase hold."""
+    import torch
+
+    case = {"model": cfg.name, "B": B, "prompt": S,
+            "decode_shard_map": flag, "steps": len(logits) - 1}
+    clean = torch.ones(B, dtype=torch.bool)
+    ok = []
+    if cfg.is_moe:
+        rd, rt, rrows = tp_route_rows(w["routes"], routes, mesh.size, B)
+        kd, kt, krows = tp_route_rows(w["keeps"], keeps, mesh.size, B)
+        for r in rrows | krows:
+            clean[r] = False
+        case.update(routes_differing=rd, routes=rt, kept_differing=kd,
+                    kept=kt, rows_held=int(clean.sum()))
+        ok.append(rd <= TP_ROUTE_SHARE * rt and kd <= TP_ROUTE_SHARE * kt
+                  and bool(clean.any()))
+    errs, mags, tokens_equal = [], [], True
+    for g, want in zip(logits, w["logits"]):
+        g, want = g[clean], want[clean]
+        errs.append(float((g - want).abs().max()))
+        mags.append(float(want.abs().max()))
+        tokens_equal &= bool(torch.equal(g.argmax(-1), want.argmax(-1)))
+    case.update(logits_max_abs_err=max(errs), logits_max_abs=max(mags),
+                logits_rel=max(e / m for e, m in zip(errs, mags)),
+                tokens_equal=tokens_equal)
+    ok += [case["logits_rel"] <= TP_LOGIT_REL, tokens_equal]
+    spread = w.get("halves", {})
+    if spread:
+        case["whole_halves_rel"] = spread
+    for name, t in kv.items():
+        err, mag = _rel_err(t, w["kv"][name])
+        own = spread.get(name, 0.0)
+        bar = TP_SPREAD * own if own > TP_KV_REL else TP_KV_REL
+        case[f"prefill_{name}_rel"] = err / mag
+        case[f"prefill_{name}_bar"] = bar
+        case[f"prefill_{name}_rel_by_layer"] = [
+            float(e / m) for e, m in zip(
+                (t - w["kv"][name]).abs().flatten(1).max(1).values,
+                w["kv"][name].abs().flatten(1).max(1).values)]
+        ok.append(err <= bar * mag)
+    case["flops_over_whole"] = {
+        k: flops[k] / w["flops"][k] for k in flops if w["flops"].get(k)}
+    if B == TP_B:
+        for k in TP_SPLIT[arch]:
+            ok.append(abs(case["flops_over_whole"][k] - 1.0) < 1e-12)
+    case["launches"] = {k: launches[k] for k in TP_KERNELS}
+    case["meta_kernel_calls"] = expect
+    if mesh.device_list[0].type == "cuda":   # the plain versions count none
+        ok.append(case["launches"] == expect)
+    case["held"] = all(ok)
+    return case
+
+
 def phase_mesh(args, dev) -> dict:
-    """The mesh layer: 4 logical devices placed round-robin on the visible
-    cards; (a) bge's embed tier fanned out over them against one device,
-    (b) qwen2-72b's decode on a cache whose sequence is split over them
-    against the whole cache.  The launches of the path are those of the
-    fanned-out and sharded runs."""
+    """The mesh layer: (a) bge's embed tier fanned out over 4 logical
+    devices placed round-robin on the visible cards, against one device;
+    (b) qwen2-72b's decode on a cache whose sequence is split over them,
+    against the whole cache; (c) qwen2-72b, granite-moe-3b-a800m and
+    hymba-1.5b served on (data 2, model 4) positions, weights split over
+    model and the batch over data, against the same steps on the whole
+    tree.  The launches of the path are those of the fanned-out,
+    sequence-sharded and tensor-parallel runs."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import lm
+
     devices = mesh_devices(dev)
     emit({"phase": "mesh", "placement": [str(d) for d in devices]})
     fan, fan_counts = mesh_fanout(dev, devices)
-    dec, dec_counts = mesh_decode(dev, devices)
-    counts = {k: fan_counts[k] + dec_counts[k] for k in fan_counts}
+    tp_devices = mesh_devices(dev, TP_MESH[0] * TP_MESH[1])
+    tp, tp_counts = {}, {}
+    for arch in TP_ARCHS:
+        cfg = mesh_config(dev, arch)
+        params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=torch.bfloat16)
+        if arch == MESH_ARCH:
+            dec, dec_counts = mesh_decode(dev, devices, params)
+        tp[arch], counts = mesh_tp(dev, tp_devices, arch, params)
+        del params
+        gc.collect()
+        tp_counts = {k: tp_counts.get(k, 0) + counts[k] for k in counts}
+        emit({"phase": "mesh", "tp": {k: v for k, v in tp[arch].items()
+                                      if k != "cases"}})
+    counts = {k: fan_counts[k] + dec_counts[k] + tp_counts[k]
+              for k in fan_counts}
     if dev.type == "cuda":
         for name in ("flash_attention", "pool_norm", "rmsnorm",
-                     "flash_decode"):
+                     "flash_decode", "ssm_scan"):
             require(counts[name] > 0, f"{name} was not launched on the mesh "
                                       f"path: {counts}")
         # one flash_decode launch a shard, a layer, a step
@@ -2710,7 +3171,9 @@ def phase_mesh(args, dev) -> dict:
                 f"flash_decode launches {dec_counts['flash_decode']}, want "
                 f"{want}")
     return {"placement": [str(d) for d in devices], "fanout": fan,
-            "decode": dec, "launches": counts}
+            "decode": dec, "tp": tp, "launches": counts,
+            "launches_by_part": {"fanout": fan_counts, "decode": dec_counts,
+                                 "tp": tp_counts}}
 
 
 def leaf_cosines(a, b, piece: int = 1 << 26) -> dict:

@@ -76,7 +76,7 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
     from the bucketed backend (``traces``, ``bucket_hits``,
     ``real_tokens``/``padded_tokens``, ``truncated``).  A mesh whose
     ``model`` axis would split the weights raises ``NotImplementedError``:
-    tensor-parallel serving is not ported.
+    the embedder on a model axis is not ported.
     """
 
     def __init__(self, cfg, params, max_tokens: int = 128, *,
@@ -107,8 +107,8 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
         if mesh.size != ndev:
             raise NotImplementedError(
                 f"a serve mesh with a model axis, {mesh.shape}, splits the "
-                f"weights: tensor-parallel serving is not ported (ROADMAP.md "
-                f"Queue 1 item 6)")
+                f"embedder's weights: tensor-parallel serving of the embedder "
+                f"is not ported (ROADMAP.md Queue 1 item 6)")
         self.mesh = mesh
         self.device_count = ndev
         # the parent realises the dtype policy ONCE at load (serve_params

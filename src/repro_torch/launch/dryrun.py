@@ -13,11 +13,14 @@ in seconds a step).  ``roofline.op_cost`` counts the aten ops the step
 dispatches and the kernel calls its routers report, and
 ``roofline.analysis`` turns them into the H100's roofline terms.
 
-The mesh counted is the one the port executes: one card (``"mesh":
-"1"``).  The reference's production meshes (16x16, and 2x16x16 under
-``--multi-pod``) split weights over ``model``, which the port does not
-execute: asking for one raises ``NotImplementedError`` naming ROADMAP
-Queue 1 item 6, and the CLI records that error for every combination.
+The mesh counted is one card (``"mesh": "1"``).  The port executes the
+decoders' serving steps over a (data, model) mesh in one process
+(``models.tp``), and a step traces on a mesh of meta positions, but the
+dry run does not count the reference's production meshes (16x16, and
+2x16x16 under ``--multi-pod``) yet: that needs one position's step with
+the bytes of its collectives.  Asking for one raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 6, and the CLI records
+that error for every combination.
 
 A decode step is the one at position seq_len - 1: every slot of its
 seq_len-deep cache holds a token.  The paper's two embedders run their
@@ -55,7 +58,7 @@ def _check_mesh(mesh: str) -> None:
     if mesh != "1":
         raise NotImplementedError(
             f"the {mesh} production mesh splits weights over the model axis; "
-            f"the port executes one card only ({TP_ITEM})")
+            f"the dry run counts one card only ({TP_ITEM})")
 
 
 def build_step(cfg, shape):

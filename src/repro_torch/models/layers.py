@@ -32,6 +32,12 @@ products (``torch.einsum``), and a decode step's cross attention
 (``cross_decode``) is two ``einsum``s and a softmax, as the reference
 computes them outside any kernel.
 
+A mesh's positions (``models.tp``) run these functions on their blocks:
+the mamba mixer in pieces (``mamba_conv``, ``mamba_ssm_inputs``, the scan
+or ``ssm_step``, ``mamba_gate``), between which the position's partials
+are summed and its channels gathered, and the MoE block on a run of the
+experts (``_apply_moe_row``'s ``first_expert``).
+
 Numerics kept from the reference: GELU is the tanh form (``jax.nn.gelu``'s
 default), the layernorm variance is biased, norms compute in fp32 and cast
 back, sinusoids are ``[sin | cos]``, RoPE rotates halves in fp32, the SSM
@@ -459,11 +465,17 @@ def moe_slots(flat_e: torch.Tensor, E: int, cap: int):
     return slot, keep
 
 
-def _apply_moe_row(p: Params, cfg: ModelConfig, x: torch.Tensor):
+def _apply_moe_row(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                   first_expert: int = 0):
     """MoE over x (B, S, D), each batch row dispatched on its own: an
     expert takes at most cap = ceil(S * K / E * capacity_factor) of a
     row's assignments, the rest are dropped.  Returns (y (B, S, D), the
-    Switch load-balance loss, fp32)."""
+    Switch load-balance loss, fp32).
+
+    ``p``'s expert weights may hold a run of the experts from
+    ``first_expert`` on (a mesh position's block of experts over
+    ``model``): the assignments to the other experts then add nothing, and
+    y is this block's share of the sum over the experts."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     probs, gate_w, eidx = moe_route(p, cfg, x)
@@ -480,13 +492,18 @@ def _apply_moe_row(p: Params, cfg: ModelConfig, x: torch.Tensor):
     # row is discarded, so which one lands does not matter.
     dispatched = x.new_zeros((B, E * cap + 1, D))
     dispatched[rows, slot] = x.repeat_interleave(K, dim=1)
-    ein = dispatched[:, :E * cap].reshape(B, E, cap, D)
+    held = p["w_gate"].shape[0]
+    lo, hi = first_expert * cap, (first_expert + held) * cap
+    ein = dispatched[:, lo:hi].reshape(B, held, cap, D)
     g = F.silu(torch.einsum("becd,edf->becf", ein,
                             p["w_gate"].to(ein.dtype)))
     u = torch.einsum("becd,edf->becf", ein, p["w_up"].to(ein.dtype))
     eout = torch.einsum("becf,efd->becd", g * u, p["w_down"].to(ein.dtype))
-    eflat = torch.cat([eout.reshape(B, E * cap, D),
-                       eout.new_zeros((B, 1, D))], dim=1)
+    parts = [eout.reshape(B, held * cap, D),
+             eout.new_zeros((B, E * cap + 1 - hi, D))]
+    if lo:
+        parts.insert(0, eout.new_zeros((B, lo, D)))
+    eflat = torch.cat(parts, dim=1)
     w = (gate_w.reshape(B, S * K) * keep).to(x.dtype)
     y = (eflat[rows, slot] * w[..., None]).reshape(B, S, K, D).sum(2)
     return y, aux
@@ -512,9 +529,18 @@ def _mamba_core(p: Params, cfg: ModelConfig, xz: torch.Tensor,
                 conv_state: Optional[torch.Tensor] = None):
     """Shared pre-scan computation.  xz: (B, S, 2*DI).  Returns (xc, z, dt,
     Bm, Cm, A, new_conv_state); dt, Bm, Cm and A are fp32."""
-    N, R, CK = cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    xc, z, new_conv_state = mamba_conv(p, cfg, xz, conv_state)
+    dbc = xc @ p["x_proj"].to(xc.dtype)                        # (B, S, R+2N)
+    return (xc, z) + mamba_ssm_inputs(p, cfg, dbc) + (new_conv_state,)
+
+
+def mamba_conv(p: Params, cfg: ModelConfig, xz: torch.Tensor,
+               conv_state: Optional[torch.Tensor] = None):
+    """The causal depthwise conv (kernel CK) along S of xz's x half, and
+    silu: (xc, z, new_conv_state), each over xz's channels (a mesh
+    position's block holds its range of both halves)."""
+    CK = cfg.ssm_conv
     x, z = xz.chunk(2, dim=-1)                                 # (B, S, DI)
-    # causal depthwise conv along S (kernel CK)
     if conv_state is None:
         xpad = F.pad(x, (0, 0, CK - 1, 0))
     else:
@@ -524,20 +550,31 @@ def _mamba_core(p: Params, cfg: ModelConfig, xz: torch.Tensor,
     S = x.shape[1]
     xc = sum(xpad[:, i:i + S, :] * conv_w[i] for i in range(CK))
     xc = F.silu(xc + p["conv_b"].to(x.dtype))
-    # input-dependent SSM params
-    dbc = xc @ p["x_proj"].to(xc.dtype)                        # (B, S, R+2N)
+    return xc, z, new_conv_state
+
+
+def mamba_ssm_inputs(p: Params, cfg: ModelConfig, dbc: torch.Tensor):
+    """The input-dependent SSM params from dbc = xc @ x_proj (B, S, R+2N):
+    (dt, Bm, Cm, A), fp32, dt and A over p's channels."""
+    N, R = cfg.ssm_state, cfg.dt_rank
     dt, Bm, Cm = torch.split(dbc, [R, N, N], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"].to(dt.dtype)
                     + p["dt_bias"].to(dt.dtype)).float()
     A = -torch.exp(p["A_log"].float())                         # (DI, N)
-    return xc, z, dt, Bm.float(), Cm.float(), A, new_conv_state
+    return dt, Bm.float(), Cm.float(), A
+
+
+def mamba_gate(p: Params, dtype, y: torch.Tensor, xc: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """The scan's output with the skip and the z gate, in ``dtype``: what
+    ``out_proj`` multiplies."""
+    y = y + p["D"] * xc.float()
+    return (y * F.silu(z.float())).to(dtype)
 
 
 def _mamba_out(p: Params, x: torch.Tensor, y: torch.Tensor, xc: torch.Tensor,
                z: torch.Tensor) -> torch.Tensor:
-    y = y + p["D"] * xc.float()
-    y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"].to(x.dtype)
+    return mamba_gate(p, x.dtype, y, xc, z) @ p["out_proj"].to(x.dtype)
 
 
 def mamba_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor):
@@ -615,8 +652,15 @@ def mamba_decode(p: Params, cfg: ModelConfig, x1: torch.Tensor,
     Returns (y (B, 1, D), new ssm_state, new conv_state)."""
     xz = x1 @ p["in_proj"].to(x1.dtype)
     xc, z, dt, Bm, Cm, A, new_conv = _mamba_core(p, cfg, xz, conv_state)
+    y, h = ssm_step(ssm_state, xc, dt, Bm, Cm, A)
+    return _mamba_out(p, x1, y, xc, z), h, new_conv
+
+
+def ssm_step(ssm_state: torch.Tensor, xc: torch.Tensor, dt: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, A: torch.Tensor):
+    """The recurrence for one token (inputs (B, 1, ...)): (y (B, 1, DI)
+    fp32, the new state (B, DI, N))."""
     dA = torch.exp(dt[:, 0][..., None] * A)
     dBx = (dt[:, 0] * xc[:, 0].float())[..., None] * Bm[:, 0][:, None, :]
     h = ssm_state * dA + dBx
-    y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None, :]
-    return _mamba_out(p, x1, y, xc, z), h, new_conv
+    return torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None, :], h

@@ -36,9 +36,9 @@ Under ``decode_shard_map`` a cache can be laid out over a mesh: with
 ``parallel.sharding.shard`` under the reference's ``cache_pspecs`` entries
 (the sequence over the seq axes; ``ssm``, ``conv`` and ``pos`` stay on
 the home device), and ``decode_step(shard_ctx=)`` attends the shards with
-``layers.attn_decode_sharded``.  A mesh whose data axes hold more than one
-position (batch over ``data``) is not ported: the sequence is the only dim
-the port splits.
+``layers.attn_decode_sharded``; the tree and the batch stay whole on the
+home device.  A tree placed over a mesh (weights over ``model``, the batch
+over ``data``) runs on the mesh's positions: ``models.tp``.
 """
 from __future__ import annotations
 
@@ -134,10 +134,19 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
            extra_embed: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     h = params["embed"][tokens.long()].to(compute_dtype)
+    return add_positions(cfg, h, pos_offset, extra_embed)
+
+
+def add_positions(cfg: ModelConfig, h: torch.Tensor, pos_offset: int,
+                  extra_embed: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token embeddings h (B, S, D) -> (h with a VLM's patch embeddings
+    prepended and, for a family without rotary positions, the sinusoids
+    added; the (S,) int32 positions from ``pos_offset``)."""
     if extra_embed is not None:          # VLM: prepend stub patch embeddings
         h = torch.cat([extra_embed.to(h.dtype), h], dim=1)
     positions = torch.arange(pos_offset, pos_offset + h.shape[1],
-                             dtype=torch.int32, device=tokens.device)
+                             dtype=torch.int32, device=h.device)
     if not cfg.rope_theta:               # learned/absolute-position families
         h = h + L.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
     return h, positions
@@ -257,14 +266,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return cache
 
 
-def _seq_only(mesh) -> None:
-    if sharding._dp_size(mesh) > 1:
-        raise NotImplementedError(
-            f"a cache split over the data axes of {mesh.shape} is not "
-            f"ported: the port shards the sequence only (ROADMAP.md Queue 1 "
-            f"item 6, tensor-parallel serving across cards)")
-
-
 def shard_cache(cache: Params, shard_ctx) -> Params:
     """The cache with ``k``, ``v`` and ``kpos`` placed over the mesh of
     ``shard_ctx = (mesh, b, seq_axes)`` under the reference's
@@ -272,7 +273,6 @@ def shard_cache(cache: Params, shard_ctx) -> Params:
     (seq,), an entry dropped where its axes do not divide the dim.  The
     rest stays where it is."""
     mesh, b, seq_axes = shard_ctx
-    _seq_only(mesh)
     seq = seq_axes if len(seq_axes) > 1 else seq_axes[0]
     out = dict(cache)
     if "k" in cache:
@@ -383,11 +383,14 @@ def _decode_sharded(params: Params, cfg: ModelConfig, h: torch.Tensor,
                     cache: Params, shard_ctx) -> Tuple[torch.Tensor, Params]:
     """``decode_step``'s layers over a sequence-sharded cache: attention on
     the shards, a hybrid block's SSM state on the home device."""
-    _seq_only(shard_ctx[0])
     if not isinstance(cache["k"], sharding.Sharded):
         raise TypeError("decode_shard_map: the cache is not laid out over "
                         "the mesh; build it with shard_ctx "
                         "(init_cache, prefill or lm.shard_cache)")
+    if len({i[1].start for i in cache["k"].index}) > 1:
+        raise TypeError("decode_shard_map on a whole tree needs a cache "
+                        "whose batch is whole; a batch over the data axes "
+                        "runs on a tree placed over the mesh (models.tp)")
     pos = cache["pos"]
     ks, vs = cache["k"].along(2), cache["v"].along(2)
     kposs = cache["kpos"].along(0)

@@ -19,7 +19,12 @@ split over their product, the first axis major).  A sharding is a ``(mesh,
 spec)`` pair.  There is no compiler to partition a program by them:
 ``shard`` cuts a tensor into the block each mesh position holds and places
 each block on that position's device, ``unshard`` puts the blocks back
-together, and the code that serves runs on the blocks.
+together, and the code that serves runs on the blocks (``models.tp``, each
+mesh position in turn, its sums and gathers those of
+``parallel.collectives``).  A mamba ``in_proj`` (D, 2 * d_inner) holds the
+x and z halves side by side; ``shard_tree`` splits each half's channels
+under the spec's last entry (``HALVED``), so a position holds its channel
+range of both halves.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 STACK_KEYS = ("blocks", "enc_blocks", "dec_blocks")
+# leaves whose last dim is two halves split alike: [x | z] of mamba's in_proj
+HALVED = ("in_proj",)
 Spec = Tuple
 
 
@@ -275,6 +282,14 @@ class Sharded:
     blocks: List[torch.Tensor]
     index: List[Tuple[slice, ...]]
 
+    @classmethod
+    def of(cls, mesh, spec: Spec, shape, blocks) -> "Sharded":
+        """The layout of ``blocks``, one a position, already cut under
+        ``spec`` from a ``shape`` tensor."""
+        return cls(mesh, tuple(spec), tuple(shape), list(blocks),
+                   [block_index(mesh, spec, shape, p)
+                    for p in range(mesh.size)])
+
     def along(self, dim: int) -> List[torch.Tensor]:
         """One block for each distinct slice of ``dim``, in order along it
         (the first position that holds each), e.g. a cache's sequence
@@ -351,20 +366,41 @@ def unshard(sharded: Sharded, device=None) -> torch.Tensor:
     return out
 
 
-def shard_tree(tree, shardings) -> Any:
+def shard_tree(tree, shardings, free: bool = False) -> Any:
     """``shard`` every leaf of ``tree`` under the matching ``(mesh, spec)``
-    of ``shardings`` (a tree of the same keys)."""
-    def place(path, t):
-        mesh, spec = _at(shardings, path)
-        return shard(t, spec, mesh)
+    of ``shardings`` (a tree of the same keys), leaf by leaf.  A ``HALVED``
+    leaf of last dim n is placed as (..., 2, n / 2) with each half split
+    under the spec's last entry (dropped where it does not divide n / 2):
+    a block's ``flatten(-2)`` is its x channels, then the same z
+    channels.
 
-    return tree_map_with_path(place, tree)
+    With ``free`` each leaf is deleted from ``tree`` as soon as its blocks
+    are placed, so a caller that holds no other reference to it never
+    holds a whole tree and all its blocks at once (qwen2-72b at 24 layers:
+    47.1 GB of bf16 either way)."""
+    out: Dict[str, Any] = {}
+    for key in list(tree):
+        sub = tree[key]
+        if isinstance(sub, dict):
+            out[key] = shard_tree(sub, shardings[key], free)
+            continue
+        mesh, spec = shardings[key]
+        if key in HALVED:
+            sub = sub.unflatten(-1, (2, -1))
+            spec = tuple(spec) + (None,) * (sub.dim() - 1 - len(spec))
+            spec = spec[:-1] + _fit(mesh, sub.shape[-2:], (None, spec[-1]))
+        out[key] = shard(sub, spec, mesh)
+        if free:
+            del tree[key], sub
+    return out
 
 
-def _at(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
+def is_placed(tree) -> bool:
+    """Whether a param tree's leaves are ``Sharded`` (placed over a mesh by
+    ``shard_tree``) rather than whole tensors."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()), None)
+    return isinstance(tree, Sharded)
 
 
 def local_tree(sharded_tree, position: int) -> Any:

@@ -81,8 +81,10 @@ class PerfFlags:
     # new token.  Needs a mesh (``steps/serve.build_decode_step``).
     decode_shard_map: bool = False
     # serving: place weights tensor/expert-parallel only (resident weights,
-    # no FSDP specs).  Executing that placement across cards is not ported
-    # yet: the serve-step builders raise when it would split a weight.
+    # no FSDP specs).  Off, the train-mode rules also split weights over
+    # data, gathered at their use (``models.tp``).  A decoder's steps run
+    # either placement over a mesh; whisper's encoder-decoder is refused
+    # under it with a model axis (``steps/serve.py``).
     serve_tp_only: bool = False
     # the dry run's decode cache (launch/dryrun.py): fp32 when on, else
     # bf16 (the reference's flag; the LM backend's cache is fp32).

@@ -23,8 +23,10 @@ to those ops:
   function (``roofline.kernel_cost``), and the calls are counted a kernel;
 * the backward of ``torch.utils.checkpoint`` runs its recomputation as
   ops, so it is counted, as XLA's remat is;
-* collectives: the reference's five kinds, each 0: a step on one card,
-  the only mesh the port executes, moves nothing between devices.
+* collectives: the reference's five kinds, each 0.  A step over a mesh of
+  meta positions (``models.tp``) reports every position's kernel calls;
+  the bytes its sums and gathers move between positions are not counted
+  yet (ROADMAP Queue 1 item 6).
 
 These are eager bytes: what a fused program would keep in registers or
 shared memory between ops is counted here as written and read again.

@@ -7,20 +7,23 @@ on ``batch.get("patches")``; ``build_decode_step``'s step returns the
 greedy next token and the cache.  ``compute_dtype`` is the activation
 dtype (None: ``layers.COMPUTE_DTYPE``, bf16).
 
-A mesh (``launch.mesh``) is taken as the reference takes it.  With the
-``decode_shard_map`` flag on, an attention decoder's cache is laid out
-over the mesh's sequence axes: the prefill step returns it sharded
-(``lm.shard_cache``) and the decode step attends the shards
-(``lm.decode_step(shard_ctx=)``, the reference's flash-decode over
-``shard_map``).  Without the flag, or with no mesh, the steps run on the
-tensors where they lie.  The reference's residual-stream layout hint
+A mesh (``launch.mesh``) is taken as the reference takes it, with the
+param tree placed over it by ``serve_shardings`` and
+``parallel.sharding.shard_tree``: the steps then run each position on its
+blocks, weights split over ``model`` and the batch over the data axes, in
+one process (``models.tp``), and return whole logits and tokens on the
+first position's device.  Their cache is laid out over the mesh: under
+the ``decode_shard_map`` flag its sequence is split (the reference's
+flash-decode over ``shard_map``), else its heads are as the K/V
+projections leave them.  A tree of whole tensors runs on the device it
+lies on; under ``decode_shard_map`` its cache's sequence is still laid
+out over the mesh (``lm.shard_cache``, ``lm.decode_step(shard_ctx=)``).
+The reference's residual-stream layout hint
 (``sharding.hidden_constraint``) is the identity here.
 
-Not ported: a mesh whose data axes hold more than one position (the batch
-over ``data``), and weights split over the ``model`` axis, which
-``serve_shardings`` specifies under ``serve_tp_only``.  The builders raise
-``NotImplementedError`` for either; ``serve_shardings`` still returns the
-reference's specs.
+Not ported on a mesh: whisper's encoder-decoder (``cross_attention``)
+with more than one position on the data axes, or under ``serve_tp_only``
+with a ``model`` axis; the builders raise ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -30,39 +33,49 @@ import torch
 
 from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import encdec, lm
+from repro_torch.models import encdec, lm, tp
 from repro_torch.parallel import sharding
 
 TP_ITEM = "ROADMAP.md Queue 1 item 6, tensor-parallel serving across cards"
 
 
-def _check_mesh(mesh) -> None:
+def _check_mesh(cfg: ModelConfig, mesh) -> None:
     """Refuse what the port does not execute on a mesh."""
-    if mesh is None:
+    if mesh is None or not cfg.cross_attention:
         return
     if sharding._dp_size(mesh) > 1:
         raise NotImplementedError(
-            f"serving with the batch over the data axes of {mesh.shape} is "
-            f"not ported ({TP_ITEM})")
+            f"serving an encoder-decoder with the batch over the data axes "
+            f"of {mesh.shape} is not ported ({TP_ITEM})")
     if perf_flags.FLAGS.serve_tp_only and mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
-            f"serve_tp_only places weights tensor-parallel over the model "
-            f"axis of {mesh.shape}; executing that placement is not ported "
-            f"({TP_ITEM})")
+            f"serve_tp_only places an encoder-decoder's weights "
+            f"tensor-parallel over the model axis of {mesh.shape}; executing "
+            f"that placement is not ported ({TP_ITEM})")
 
 
 def _shard_ctx(cfg: ModelConfig, shape: ShapeConfig, mesh):
-    """The reference's ``(mesh, batch axes, seq axes)`` for the
-    flash-decode path, or None where it does not apply."""
+    """A whole tree's ``(mesh, batch axes, seq axes)`` for the flash-decode
+    path (the batch whole on the home device), or None where it does not
+    apply."""
     if (mesh is None or not perf_flags.FLAGS.decode_shard_map
             or cfg.cross_attention or not cfg.has_attention):
         return None
     big = shape.global_batch >= sharding._dp_size(mesh)
-    dp = sharding.dp_axes(mesh)
-    dps = dp if len(dp) > 1 else (dp[0] if dp else None)
-    b = dps if big else None
-    seq_axes = ("model",) if big else tuple(dp) + ("model",)
-    return mesh, b, seq_axes
+    seq_axes = ("model",) if big else sharding.dp_axes(mesh) + ("model",)
+    return mesh, None, seq_axes
+
+
+def _placed(cfg: ModelConfig, mesh, params) -> bool:
+    """Whether the step runs on the mesh's positions: a decoder's tree
+    placed over ``mesh``."""
+    if mesh is None or not sharding.is_placed(params):
+        return False
+    if cfg.cross_attention:
+        raise NotImplementedError(
+            f"an encoder-decoder on a tree placed over {mesh.shape} is not "
+            f"ported ({TP_ITEM})")
+    return True
 
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
@@ -71,10 +84,16 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     """``prefill_step(params, batch) -> (last-position logits, cache)``;
     ``batch`` holds ``tokens`` and, per family, ``frames`` or
     ``patches``."""
-    _check_mesh(mesh)
+    _check_mesh(cfg, mesh)
     shard_ctx = _shard_ctx(cfg, shape, mesh)
 
     def prefill_step(params, batch):
+        if _placed(cfg, mesh, params):
+            return tp.prefill(params, cfg, batch["tokens"], mesh,
+                              extra_embed=batch.get("patches"),
+                              cache_dtype=cache_dtype, max_len=max_len,
+                              compute_dtype=compute_dtype,
+                              seq_shard=perf_flags.FLAGS.decode_shard_map)
         if cfg.cross_attention:
             return encdec.prefill(params, cfg, batch["tokens"],
                                   batch["frames"], cache_dtype=cache_dtype,
@@ -89,16 +108,21 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
 
 
 def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
-                      greedy: bool = True, compute_dtype=None):
+                      greedy: bool = True, compute_dtype=None,
+                      return_logits: bool = False):
     """``serve_step(params, cache, batch) -> (next token (B,) int32,
     cache)`` for ``batch["token"]`` (B,); the cache is updated in place,
     as ``lm.decode_step`` and ``encdec.decode_step`` update it.  The next
-    token is the argmax (``greedy`` is the reference's only mode too)."""
-    _check_mesh(mesh)
+    token is the argmax (``greedy`` is the reference's only mode too).
+    ``return_logits`` appends the step's logits (B, V) to the result."""
+    _check_mesh(cfg, mesh)
     shard_ctx = _shard_ctx(cfg, shape, mesh)
 
     def serve_step(params, cache, batch):
-        if cfg.cross_attention:
+        if _placed(cfg, mesh, params):
+            logits, cache = tp.decode_step(params, cfg, batch["token"], cache,
+                                           mesh, compute_dtype=compute_dtype)
+        elif cfg.cross_attention:
             logits, cache = encdec.decode_step(params, cfg, batch["token"],
                                                cache,
                                                compute_dtype=compute_dtype)
@@ -106,7 +130,8 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
             logits, cache = lm.decode_step(params, cfg, batch["token"], cache,
                                            compute_dtype=compute_dtype,
                                            shard_ctx=shard_ctx)
-        return logits.argmax(-1).to(torch.int32), cache
+        tok = logits.argmax(-1).to(torch.int32)
+        return (tok, cache, logits) if return_logits else (tok, cache)
 
     return serve_step
 

@@ -490,9 +490,11 @@ def test_serve_step_builders_match_the_reference_builders(
 
 @pytest.mark.parametrize("arch", BUILDER_ARCHS)
 def test_serve_step_builders_refuse_a_mesh(arch):
-    """A mesh whose data axis holds more than one position, or whose model
-    axis would split the weights (``serve_tp_only``), is refused, naming
-    the tensor-parallel item; a (1, 4) mesh is taken."""
+    """For the encoder-decoder, a mesh whose data axis holds more than one
+    position, or whose model axis would split the weights
+    (``serve_tp_only``), is refused, naming the tensor-parallel item; a
+    (1, 4) mesh is taken.  A decoder takes all three (its steps run on
+    the mesh's positions, ``tests/test_torch_tp_serve.py``)."""
     from repro_torch import perf_flags
     from repro_torch.launch.mesh import Mesh
 
@@ -501,12 +503,18 @@ def test_serve_step_builders_refuse_a_mesh(arch):
     data2 = Mesh(["cpu"] * 2, (2, 1), ("data", "model"))
     model4 = Mesh(["cpu"] * 4, (1, 4), ("data", "model"))
     for build in (serve.build_prefill_step, serve.build_decode_step):
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
-            build(tc, shape, mesh=data2)
         assert callable(build(tc, shape, mesh=model4))
         perf_flags.set_flags(serve_tp_only=True)
         try:
-            with pytest.raises(NotImplementedError, match="tensor-parallel"):
-                build(tc, shape, mesh=model4)
+            for mesh in (data2, model4):
+                if tc.cross_attention:
+                    with pytest.raises(NotImplementedError,
+                                       match="tensor-parallel"):
+                        build(tc, shape, mesh=mesh)
+                else:
+                    assert callable(build(tc, shape, mesh=mesh))
         finally:
             perf_flags.reset_flags()
+        if tc.cross_attention:
+            with pytest.raises(NotImplementedError, match="tensor-parallel"):
+                build(tc, shape, mesh=data2)

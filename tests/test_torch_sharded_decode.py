@@ -225,6 +225,10 @@ def test_init_cache_lays_out_an_empty_cache_over_the_mesh():
 
 
 def test_sharded_decode_refuses_a_whole_cache_and_a_data_axis():
+    """A whole cache under decode_shard_map is refused; a cache laid out
+    over a data axis (each row on its own position) holds the whole
+    cache's values, and a whole tree's sequence-split read refuses it (a
+    batch over data runs on a tree placed over the mesh, models/tp.py)."""
     cfg = get_config("stablelm-1.6b").smoke()
     params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.zeros((2, 5), dtype=torch.int32)
@@ -236,9 +240,24 @@ def test_sharded_decode_refuses_a_whole_cache_and_a_data_axis():
             lm.decode_step(params, cfg, toks[:, -1], cache, shard_ctx=ctx)
     finally:
         perf_flags.reset_flags()
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        lm.shard_cache(cache, (Mesh(["cpu"] * 2, (2, 1), ("data", "model")),
-                               "data", ("model",)))
+    data_ctx = (Mesh(["cpu"] * 4, (2, 2), ("data", "model")), "data",
+                ("model",))
+    split = lm.shard_cache(cache, data_ctx)
+    assert [tuple(b.shape) for b in split["k"].blocks] == [
+        (cfg.num_layers, 1, 4, cfg.num_kv_heads, cfg.resolved_head_dim)] * 4
+    assert [i[1] for i in split["k"].index] == [slice(0, 1)] * 2 + [
+        slice(1, 2)] * 2
+    whole = lm.unshard_cache(split)
+    assert whole["pos"] == cache["pos"]
+    for key in ("k", "v", "kpos"):
+        assert torch.equal(whole[key], cache[key]), key
+    perf_flags.set_flags(decode_shard_map=True)
+    try:
+        with pytest.raises(TypeError, match="batch is whole"):
+            lm.decode_step(params, cfg, toks[:, -1], split,
+                           shard_ctx=data_ctx)
+    finally:
+        perf_flags.reset_flags()
 
 
 # ------------------------------------------------ the combine's identities --
