@@ -362,6 +362,32 @@ TP_LOGIT_REL, TP_KV_REL, TP_ROUTE_SHARE, TP_SPREAD = 1e-4, 1e-5, 1e-4, 2.0
 TP_SPLIT = {"qwen2-72b": ("flash_attention", "flash_decode"),
             "granite-moe-3b-a800m": ("flash_attention", "flash_decode"),
             "hymba-1.5b": ("ssm_scan",)}
+# whisper-tiny in the tensor-parallel part: fp32 weights, compute and
+# cache, its 1500 stub frames, B 8, a 64-token prompt, 16 decode steps
+# forced to the whole run's tokens, on (data 2, model 4) (6 heads: each
+# block cuts a head, so the projections are gathered and every position
+# attends every head) and on (data 1, model 2) (3 whole heads a position);
+# the kernels whose flops over all positions must equal the whole run's
+TP_ENC_MESHES = ((2, 4), (1, 2))
+TP_ENC_SPLIT = {(2, 4): (), (1, 2): ("flash_attention", "flash_decode")}
+# the mesh phase's tensor-parallel embed part: bge-large-zh-v1.5 under the
+# four serving policies and jina-v2 in fp32, through ShardedEmbedderBackend
+# on the (data 2, model 4) positions, the serve phase's 32 queries of 75
+# tokens in waves of 16 (B <= 16, S 96), against the one-device backend on
+# the same queries; bge fp32 also through the WindVE engine (a queue
+# manager over the tier, whose batches come from pop_batch).  Bars: fp32
+# and int8 within 1e-5 max-abs, bf16 and int8_w8a8 at cosine 0.999, every
+# vector of unit norm within 1e-3; the kernels whose flops over all
+# positions must equal the whole run's
+TP_EMBED = (("bge-large-zh-v1.5", "fp32"), ("bge-large-zh-v1.5", "bf16"),
+            ("bge-large-zh-v1.5", "int8"), ("bge-large-zh-v1.5", "int8_w8a8"),
+            ("jina-v2", "fp32"))
+TP_EMBED_ENGINE = ("bge-large-zh-v1.5", "fp32")
+TP_EMBED_QUERIES, TP_EMBED_WAVE, TP_EMBED_LEN, TP_EMBED_TOKENS = 32, 16, 75, 96
+TP_EMBED_ABS, TP_EMBED_COS = 1e-5, 0.999
+TP_EMBED_KERNELS = ("flash_attention", "pool_norm", "quant_matmul",
+                    "quantize_rows", "w8a8_matmul")
+TP_EMBED_SPLIT = ("flash_attention", "quant_matmul", "w8a8_matmul")
 # the train phase: stablelm-1.6b, the reference's default training model,
 # hymba-1.5b (attention and mamba heads in parallel), whisper-tiny (the
 # encoder-decoder), internvl2-2b (256 patches before the text) and
@@ -1275,7 +1301,7 @@ def phase_kernels(args, dev) -> dict:
         pools.append(pool_case(dev, 3, 20, 77, dt, "mean", [20, 0, 9]))
         pools.append(pool_case(dev, 3, 1, 1024, dt, "mean", [1, 0, 1]))
     # the projections of 16 x 96 tokens (on the CPU: 2 x 24 at width 64)
-    M = B * S
+    M, D_embed, hd_embed = B * S, D, hd
     kn = MAIN_KN if t else ((D, D), (D, 4 * D), (4 * D, D))
     qm = [quant_matmul_case(dev, M, k, n) for k, n in kn]
     qm.append(quant_matmul_case(dev, M, *kn[1], bf16))
@@ -1402,6 +1428,43 @@ def phase_kernels(args, dev) -> dict:
                 ssm_bwd.append(ssm_bwd_case(dev, b, s, di, LM_N, dt, dh, sfu))
                 key = f"{tag}_{dtype_name(dt)}{'_dh' if dh else ''}"
                 ssm_bwd_cases[key] = ssm_bwd[-1]
+    # the tensor-parallel mesh's blocks, (data 2, model 4): bge's waves
+    # of 16 rows split over data (8 x 96), a quarter of its heads a
+    # position, each projection's column block (N / 4: wq, wk, wv, w_in)
+    # or row block (K / 4: wo, w_out) at those 768 rows, a gathered row
+    # quantized whole, each data group's rows pooled; whisper-tiny's
+    # encoder, cross attention and decode read on (1, 2), 3 of its 6 heads
+    # a position, fp32 (on the CPU: smoke widths)
+    tb, th = B // 2, max(1, H // 4)
+    for dt in (f32, bf16):
+        attn.append(attention_case(dev, tb, th, th, S, hd_embed, dt,
+                                   ragged[:tb]))
+    attn_cases["bge_tp_fp32"], attn_cases["bge_tp_bf16"] = attn[-2:]
+    wth = max(1, wh // 2)
+    for tag, sq, sk in (("whisper_enc_tp_S1500", wf, wf),
+                        ("whisper_cross_tp_Sq64_Sk1500", wp, wf)):
+        attn.append(attention_case(dev, wb, wth, wth, sq, whd, f32,
+                                   [sk] * wb, Sk=sk))
+        attn_cases[f"{tag}_fp32"] = attn[-1]
+    for pool in ("cls", "mean"):
+        pools.append(pool_case(dev, tb, S, D_embed, f32, pool, ragged[:tb]))
+        pool_cases[f"tp_{pool}_float32"] = pools[-1]
+    Mt = M // 2
+    tp_kn = ((D_embed, D_embed // 4), (D_embed // 4, D_embed),
+             (D_embed, D_embed))
+    qm_tp = {f"tp_K{k}_N{n}_float32": quant_matmul_case(dev, Mt, k, n)
+             for k, n in tp_kn}
+    w8_tp = {f"tp_K{k}_N{n}_float32": w8a8_case(dev, Mt, k, n)
+             for k, n in tp_kn}
+    qr_tp = {f"tp_M{Mt}_K{k}_float32": quantize_rows_case(dev, Mt, k)
+             for k in (D_embed, 4 * D_embed)}
+    qm += list(qm_tp.values())
+    w8 += list(w8_tp.values())
+    qr += list(qr_tp.values())
+    fd_tp = {"whisper_tp_H3_q_f32_cache_f32": flash_decode_case(
+        dev, Bl, max(1, (6 if t else 2) // 2), 1, 64 if t else 32, Sc,
+        Sc - 1, 0, f32, f32)}
+    fd += list(fd_tp.values())
     rms_bwd_rows = TRAIN_B * TRAIN_S if t else 64
     rms_bwd, rms_bwd_cases = [], {}
     for d in ((2048, 6144) if t else (128, 200)):
@@ -1445,12 +1508,15 @@ def phase_kernels(args, dev) -> dict:
             "cases": {"flash_attention": attn_cases, "pool_norm": pool_cases,
                       "quant_matmul": {
                           "w_qkvo_float32": qm[0], "w_in_float32": qm[1],
-                          "w_out_float32": qm[2], "w_in_bfloat16": qm[3]},
+                          "w_out_float32": qm[2], "w_in_bfloat16": qm[3],
+                          **qm_tp},
                       "quantize_rows": {
-                          "K1024_float32": qr[0], "K4096_float32": qr[1]},
+                          "K1024_float32": qr[0], "K4096_float32": qr[1],
+                          **qr_tp},
                       "w8a8_matmul": {
                           "w_qkvo_float32": w8[0], "w_in_float32": w8[1],
-                          "w_out_float32": w8[2], "w_in_bfloat16_out": w8[3]},
+                          "w_out_float32": w8[2], "w_in_bfloat16_out": w8[3],
+                          **w8_tp},
                       "rmsnorm": {
                           "prefill_float32": rms[0], "prefill_bfloat16": rms[1],
                           "decode_float32": rms[2], "decode_bfloat16": rms[3],
@@ -1478,7 +1544,8 @@ def phase_kernels(args, dev) -> dict:
                           "whisper_served_G1_hd64": fd[14],
                           "qwen2_served_G8_hd128": fd[15],
                           "qwen2_lse_4x1024_q_bf16_cache_f32": fd_lse[0],
-                          "qwen2_lse_4x1024_q_f32_cache_f32": fd_lse[1]},
+                          "qwen2_lse_4x1024_q_f32_cache_f32": fd_lse[1],
+                          **fd_tp},
                       "flash_attention_bwd": attn_bwd_cases,
                       "rmsnorm_bwd": rms_bwd_cases,
                       "ssm_scan_bwd": ssm_bwd_cases}}
@@ -2745,32 +2812,37 @@ def mesh_decode(dev, devices, params) -> tuple:
 
 @contextlib.contextmanager
 def kernel_flops(acc: dict):
-    """Inside: each call of flash_attention, flash_decode, rmsnorm and
-    ssm_scan through models.layers (flash_decode_sharded: one flash_decode
-    a shard) adds its kernel_cost flops to ``acc[name]``: the router's own
-    meta branch on meta copies of its arguments, and for flash_decode the
-    valid slots of its kpos (this run's data, a read from the card)."""
+    """Inside: each call of flash_attention, flash_decode, rmsnorm,
+    ssm_scan, quant_matmul, quantize_rows and w8a8_matmul through
+    models.layers (flash_decode_sharded: one flash_decode a shard;
+    quant_matmul_w8a8: its quantize_rows and its w8a8_matmul), and of
+    pool_norm through models.embedder, adds its kernel_cost flops to
+    ``acc[name]``: the router's own meta branch on meta copies of its
+    arguments, and for flash_decode the valid slots of its kpos (this run's
+    data, a read from the card)."""
     import torch
 
+    from repro_torch.models import embedder
     from repro_torch.models import layers as L
 
     def meta(x):
         return (torch.empty_like(x, device="meta")
                 if isinstance(x, torch.Tensor) else x)
 
-    def costed(name, fn):
+    def costed(fn):
         def spy(*a, **kw):
             got = []
 
-            def sink(_name, flops, _nbytes):
-                got.append(flops)
+            def sink(name, flops, _nbytes):
+                got.append((name, flops))
 
             kernel_cost.listen(sink)
             try:
                 fn(*map(meta, a), **{k: meta(v) for k, v in kw.items()})
             finally:
                 kernel_cost.unlisten(sink)
-            acc[name] = acc.get(name, 0.0) + sum(got)
+            for name, flops in got:
+                acc[name] = acc.get(name, 0.0) + flops
             return fn(*a, **kw)
         return spy
 
@@ -2798,33 +2870,43 @@ def kernel_flops(acc: dict):
             return fn(q, ks, vs, kposs, pos, window=window)
         return spy
 
+    plain = ("flash_attention", "rmsnorm", "ssm_scan", "quant_matmul",
+             "quantize_rows", "w8a8_matmul", "quant_matmul_w8a8")
     saved = {name: getattr(L, name)
-             for name in TP_KERNELS + ("flash_decode_sharded",)}
+             for name in plain + ("flash_decode", "flash_decode_sharded")}
+    pool = embedder.pool_norm
     try:
-        for name in ("flash_attention", "rmsnorm", "ssm_scan"):
-            setattr(L, name, costed(name, saved[name]))
+        for name in plain:
+            setattr(L, name, costed(saved[name]))
         L.flash_decode = decode(saved["flash_decode"])
         L.flash_decode_sharded = sharded(saved["flash_decode_sharded"])
+        embedder.pool_norm = costed(pool)
         yield acc
     finally:
         for name, fn in saved.items():
             setattr(L, name, fn)
+        embedder.pool_norm = pool
 
 
 def tp_cases(arch: str, cuda: bool) -> list:
     """(B, prompt tokens, decode_shard_map) of each case."""
     prompts = TP_PROMPTS if cuda else (12, 28)
+    if arch == ENC_ARCH:
+        prompts = prompts[:1]
     cases = [(TP_B, p, False) for p in prompts]
     if arch == "qwen2-72b":
         cases += [(TP_B, p, True) for p in prompts] + [(1, prompts[-1], True)]
     return cases
 
 
-def tp_steps(params, cfg, mesh, toks, new, forced, shard_map, sync):
+def tp_steps(params, cfg, mesh, toks, new, forced, shard_map, sync,
+             extra=None):
     """Prefill then ``new`` decode steps through steps/serve.py's builders,
-    fed ``forced`` (steps, B) or, when None, the greedy tokens.  Returns
-    (the logits of the prefill and each step, fed tokens, prefill k and v
-    whole, ms a decode step)."""
+    fed ``forced`` (steps, B) or, when None, the greedy tokens; ``extra``
+    the prefill batch's other inputs (whisper's frames).  Returns (the
+    logits of the prefill and each step, fed tokens, the prefill cache's
+    k and v (and cross_k, cross_v) whole, ms a decode step, ms of the
+    prefill)."""
     import torch
 
     from repro_torch import perf_flags
@@ -2843,12 +2925,17 @@ def tp_steps(params, cfg, mesh, toks, new, forced, shard_map, sync):
         step = serve.build_decode_step(cfg, shape, mesh,
                                        compute_dtype=torch.float32,
                                        return_logits=True)
-        logits, cache = pre(params, {"tokens": toks})
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = pre(params, {"tokens": toks, **(extra or {})})
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
         kv = {}
         if "k" in cache:
             whole = lm.unshard_cache(cache)
             kv = {name: whole[name].to("cpu", copy=True)
-                  for name in ("k", "v")}
+                  for name in ("k", "v", "cross_k", "cross_v")
+                  if name in whole}
             del whole
         outs, fed = [logits], []
         tok = logits.argmax(-1).to(torch.int32)
@@ -2863,10 +2950,11 @@ def tp_steps(params, cfg, mesh, toks, new, forced, shard_map, sync):
         ms = (time.perf_counter() - t0) * 1e3 / new
     finally:
         perf_flags.set_flags(decode_shard_map=False)
-    return ([o.float().cpu() for o in outs], torch.stack(fed), kv, ms)
+    return ([o.float().cpu() for o in outs], torch.stack(fed), kv, ms,
+            prefill_ms)
 
 
-def tp_halves(params, cfg, toks, new, w) -> dict:
+def tp_halves(params, cfg, toks, new, w, extra=None) -> dict:
     """The whole steps' own spread: each half of the batch prefilled alone
     against the whole batch's prefill (the same function for a model
     without MoE; the card's products take other shapes and may sum in
@@ -2885,7 +2973,9 @@ def tp_halves(params, cfg, toks, new, w) -> dict:
                                    compute_dtype=torch.float32)
     out = {}
     for rows in (slice(0, h), slice(h, B)):
-        logits, cache = pre(params, {"tokens": toks[rows]})
+        logits, cache = pre(params, {"tokens": toks[rows],
+                                     **{k: v[rows] for k, v in
+                                        (extra or {}).items()}})
         got = {"logits": logits.float().cpu()}
         want = {"logits": w["logits"][0][rows]}
         for name in w["kv"]:
@@ -2897,10 +2987,10 @@ def tp_halves(params, cfg, toks, new, w) -> dict:
     return out
 
 
-def tp_meta_calls(cfg, positions: int, B: int, S: int, new: int,
+def tp_meta_calls(cfg, shape: tuple, B: int, S: int, new: int,
                   shard_map: bool) -> dict:
-    """Kernel calls of the mesh's prefill plus ``new`` decode steps, traced
-    on a mesh of meta positions (roofline.op_cost)."""
+    """Kernel calls of the prefill plus ``new`` decode steps on a ``shape``
+    mesh, traced on meta positions (roofline.op_cost)."""
     import torch
 
     from repro_torch import perf_flags
@@ -2911,7 +3001,7 @@ def tp_meta_calls(cfg, positions: int, B: int, S: int, new: int,
     from repro_torch.roofline import op_cost
     from repro_torch.steps import serve
 
-    mesh = Mesh(["meta"] * positions, TP_MESH, ("data", "model"))
+    mesh = Mesh(["meta"] * (shape[0] * shape[1]), shape, ("data", "model"))
     shape = ShapeConfig("tp", S + new, B, "decode")
     perf_flags.set_flags(decode_shard_map=shard_map)
     try:
@@ -2924,6 +3014,9 @@ def tp_meta_calls(cfg, positions: int, B: int, S: int, new: int,
                                        compute_dtype=torch.float32)
         batch = {"tokens": torch.zeros((B, S), dtype=torch.int32,
                                        device="meta")}
+        if cfg.cross_attention:
+            batch["frames"] = torch.zeros((B, cfg.num_frames, cfg.d_model),
+                                          device="meta")
         calls = op_cost.analyse_step(pre, placed, batch).kernel_calls
         _, cache = pre(placed, batch)
         step = serve.build_decode_step(cfg, shape, mesh,
@@ -2957,15 +3050,17 @@ def tp_route_rows(want: list, got: list, n: int, B: int) -> tuple:
     return diff, total, rows
 
 
-def mesh_tp(dev, devices, arch: str, params) -> tuple:
-    """One family's steps on (data 2, model 4) positions against the same
-    steps on the whole tree, which run first (their logits and tokens kept
-    on the host); then ``params`` is placed over the mesh leaf by leaf,
-    each whole leaf freed (``shard_tree(free=True)``), and the mesh steps
-    run fed the whole run's tokens.  Each case runs twice: once counted
-    (launch counts zeroed just before, read just after; every launch's
-    kernel_cost flops summed) and once timed.  Returns (summary, launches
-    of the counted mesh runs)."""
+def mesh_tp(dev, devices, arch: str, params, shape: tuple = TP_MESH,
+            extra=None, free: bool = True) -> tuple:
+    """One family's steps on ``shape`` (data, model) positions against the
+    same steps on the whole tree, which run first (their logits and tokens
+    kept on the host); then ``params`` is placed over the mesh leaf by
+    leaf, each whole leaf freed when ``free`` (``shard_tree(free=True)``),
+    and the mesh steps run fed the whole run's tokens.  ``extra``: the
+    prefill batch's other inputs, (TP_B, ...) tensors (whisper's frames).
+    Each case runs twice: once counted (launch counts zeroed just before,
+    read just after; every launch's kernel_cost flops summed) and once
+    timed.  Returns (summary, launches of the counted mesh runs)."""
     import gc
 
     import numpy as np
@@ -2984,12 +3079,15 @@ def mesh_tp(dev, devices, arch: str, params) -> tuple:
     cfg = mesh_config(dev, arch)
     new = TP_NEW if cuda else 4
     cases = tp_cases(arch, cuda)
-    mesh = Mesh(devices, TP_MESH, ("data", "model"))
+    mesh = Mesh(devices, shape, ("data", "model"))
+    split = (TP_ENC_SPLIT[tuple(shape)] if cfg.cross_attention
+             else TP_SPLIT[arch])
     torch.backends.cuda.matmul.allow_tf32 = False
+    wdt = next(iter(_leaves(params))).dtype
     out = {"model": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "mesh": mesh.shape,
            "placement": [str(d) for d in devices],
-           "params": param_count(params), "weights_dtype": "bfloat16",
+           "params": param_count(params), "weights_dtype": dtype_name(wdt),
            "compute_dtype": "float32", "serve_tp_only": True,
            "new_tokens": new, "cases": []}
     whole = {}
@@ -3001,19 +3099,22 @@ def mesh_tp(dev, devices, arch: str, params) -> tuple:
                 continue
             toks = torch.from_numpy(np.stack(make_queries(
                 B, cfg.vocab_size, S, seed=40 + S))).to(dev)
+            ext = {k: v[:B] for k, v in (extra or {}).items()}
             routes, keeps, flops = [], [], {}
             with kernel_flops(flops), moe_spy(routes, keeps):
-                logits, fed, kv, _ = tp_steps(params, cfg, None, toks, new,
-                                              None, False, sync)
-            ms = tp_steps(params, cfg, None, toks, TP_TIMED if cuda else 1,
-                          None, False, sync)[3]
-            whole[(B, S)] = dict(toks=toks, logits=logits, fed=fed, kv=kv,
+                logits, fed, kv, _, _ = tp_steps(params, cfg, None, toks,
+                                                 new, None, False, sync, ext)
+            _, _, _, ms, pre_ms = tp_steps(params, cfg, None, toks,
+                                           TP_TIMED if cuda else 1, None,
+                                           False, sync, ext)
+            whole[(B, S)] = dict(toks=toks, extra=ext, logits=logits,
+                                 fed=fed, kv=kv,
                                  routes=[r.cpu() for r in routes],
                                  keeps=[k.cpu() for k in keeps],
-                                 flops=flops, ms=ms)
+                                 flops=flops, ms=ms, prefill_ms=pre_ms)
             if B > 1 and not cfg.is_moe:
                 whole[(B, S)]["halves"] = tp_halves(params, cfg, toks, new,
-                                                    whole[(B, S)])
+                                                    whole[(B, S)], ext)
         if cuda:
             out["whole_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             torch.cuda.reset_peak_memory_stats()
@@ -3021,32 +3122,34 @@ def mesh_tp(dev, devices, arch: str, params) -> tuple:
         try:
             psh = serve.serve_shardings(cfg, ShapeConfig(
                 "tp", TP_PROMPTS[0], TP_B, "decode"), mesh, params)[0]
-            placed = sharding.shard_tree(params, psh, free=True)
+            placed = sharding.shard_tree(params, psh, free=free)
             gc.collect()
             counts, traced = {}, {}
             for B, S, flag in cases:
                 w = whole[(B, S)]
                 # a step's kernel calls do not depend on the prompt length
                 if (B, flag) not in traced:
-                    traced[(B, flag)] = tp_meta_calls(cfg, mesh.size, B, S,
-                                                      new, flag)
+                    traced[(B, flag)] = tp_meta_calls(cfg, shape, B, S, new,
+                                                      flag)
                 expect = traced[(B, flag)]
                 routes, keeps, flops = [], [], {}
                 reset_launch_counts()            # the counted mesh run ...
                 with kernel_flops(flops), moe_spy(routes, keeps):
-                    logits, fed, kv, _ = tp_steps(placed, cfg, mesh,
-                                                  w["toks"], new, w["fed"],
-                                                  flag, sync)
+                    logits, fed, kv, _, _ = tp_steps(
+                        placed, cfg, mesh, w["toks"], new, w["fed"], flag,
+                        sync, w["extra"])
                 sync()
                 after = launch_counts()          # ... ends here
                 counts = {k: counts.get(k, 0) + after[k] for k in after}
-                ms = tp_steps(placed, cfg, mesh, w["toks"],
-                              TP_TIMED if cuda else 1, w["fed"], flag,
-                              sync)[3]
+                _, _, _, ms, pre_ms = tp_steps(
+                    placed, cfg, mesh, w["toks"], TP_TIMED if cuda else 1,
+                    w["fed"], flag, sync, w["extra"])
                 case = tp_case(cfg, arch, mesh, B, S, flag, w, logits, kv,
-                               routes, keeps, flops, after, expect)
+                               routes, keeps, flops, after, expect, split)
                 case["whole_decode_ms_per_step"] = w["ms"]
                 case["mesh_decode_ms_per_step"] = ms
+                case["whole_prefill_ms"] = w["prefill_ms"]
+                case["mesh_prefill_ms"] = pre_ms
                 out["cases"].append(case)
                 emit({"phase": "mesh", "tp_case": case})
                 require(case["held"], f"{arch} on the mesh: {case}")
@@ -3061,21 +3164,24 @@ def mesh_tp(dev, devices, arch: str, params) -> tuple:
     return out, counts
 
 
-def param_count(params) -> int:
+def _leaves(params) -> list:
     import torch
     from torch.utils._pytree import tree_flatten
 
-    return sum(t.numel() for t in tree_flatten(params)[0]
-               if isinstance(t, torch.Tensor))
+    return [t for t in tree_flatten(params)[0] if isinstance(t, torch.Tensor)]
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
 
 
 def tp_case(cfg, arch, mesh, B, S, flag, w, logits, kv, routes, keeps,
-            flops, launches, expect) -> dict:
+            flops, launches, expect, split) -> dict:
     """One case's figures against the whole run's, and whether the bars of
     the mesh phase hold."""
     import torch
 
-    case = {"model": cfg.name, "B": B, "prompt": S,
+    case = {"model": cfg.name, "mesh": mesh.shape, "B": B, "prompt": S,
             "decode_shard_map": flag, "steps": len(logits) - 1}
     clean = torch.ones(B, dtype=torch.bool)
     ok = []
@@ -3115,7 +3221,7 @@ def tp_case(cfg, arch, mesh, B, S, flag, w, logits, kv, routes, keeps,
     case["flops_over_whole"] = {
         k: flops[k] / w["flops"][k] for k in flops if w["flops"].get(k)}
     if B == TP_B:
-        for k in TP_SPLIT[arch]:
+        for k in split:
             ok.append(abs(case["flops_over_whole"][k] - 1.0) < 1e-12)
     case["launches"] = {k: launches[k] for k in TP_KERNELS}
     case["meta_kernel_calls"] = expect
@@ -3125,6 +3231,195 @@ def tp_case(cfg, arch, mesh, B, S, flag, w, logits, kv, routes, keeps,
     return case
 
 
+def embed_meta_calls(cfg, policy: str, B: int, S: int) -> dict:
+    """Kernel calls of one tensor-parallel embed forward (models.tp.embed,
+    what ShardedEmbedderBackend runs on a model axis) on (data 2, model 4)
+    meta positions (roofline.op_cost)."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import api, quantize, tp
+    from repro_torch.parallel import sharding
+    from repro_torch.roofline import op_cost
+
+    mesh = Mesh(["meta"] * (TP_MESH[0] * TP_MESH[1]), TP_MESH,
+                ("data", "model"))
+    tree, cdt = quantize.serve_params(api.param_shapes(cfg, torch.float32),
+                                      policy)
+    placed = sharding.shard_tree(
+        tree, sharding.serve_embed_shardings(mesh, tree)[0])
+    toks = torch.zeros((B, S), dtype=torch.int32, device="meta")
+    mask = torch.ones((B, S), dtype=torch.float32, device="meta")
+    calls = op_cost.analyse_step(
+        tp.embed, placed, cfg, toks, mask, mesh, compute_dtype=cdt,
+        act_quant=quantize.wants_act_quant(policy)).kernel_calls
+    return {k: calls.get(k, 0) for k in TP_EMBED_KERNELS}
+
+
+def engine_serve(be, waves) -> "np.ndarray":
+    """The queries through the WindVE engine over one tier of ``be``: the
+    tier's queue manager pops the batches (``QueueManager.pop_batch``)
+    and its worker runs them on the backend; a wave is submitted, then
+    its vectors awaited."""
+    import numpy as np
+
+    from repro_torch.core.routing import TierSpec
+    from repro_torch.core.windve import WindVE
+
+    engine = WindVE(tiers=[TierSpec("mesh", TP_EMBED_QUERIES, backend=be,
+                                    max_batch=TP_EMBED_WAVE)])
+    try:
+        vecs = []
+        for wave in waves:
+            futs = [engine.submit(payload=q.payload, length=q.length)
+                    for q in wave]
+            require(all(f is not None for f in futs), "a query was refused")
+            vecs += [f.result(timeout=300) for f in futs]
+    finally:
+        engine.shutdown()
+    return np.stack(vecs)
+
+
+def embed_held(got, want, policy: str) -> dict:
+    """The mesh's vectors against the one device's under the policy's
+    bar."""
+    import numpy as np
+
+    err = float(np.abs(got - want).max())
+    cos = float((got * want).sum(-1).min())
+    norm_err = float(np.abs(np.linalg.norm(got, axis=-1) - 1.0).max())
+    bar = ("max_abs" if policy in ("fp32", "int8") else "cosine")
+    ok = (got.shape == want.shape and bool(np.isfinite(got).all())
+          and norm_err <= 1e-3
+          and (err <= TP_EMBED_ABS if bar == "max_abs"
+               else cos >= TP_EMBED_COS))
+    return {"max_abs_err_vs_one_device": err,
+            "min_cosine_vs_one_device": cos, "max_norm_err": norm_err,
+            "bar": bar, "held": ok}
+
+
+def embed_forward_ms(be, wave, sync) -> float:
+    """Wall ms of one wave through the backend, the card synchronised."""
+    sync()
+    t0 = time.perf_counter()
+    be.embed_batch(wave)
+    sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def mesh_tp_embed(dev, devices) -> tuple:
+    """The embedders served tensor parallel: each (model, policy) of
+    TP_EMBED through ShardedEmbedderBackend on (data 2, model 4) positions
+    of ``devices`` against the one-device backend on the same queries.
+    The one-device run goes first (its kernel flops summed); then the
+    mesh backend's counted run (launch counts zeroed just before, read
+    just after): the waves through ``embed_batch`` (flops summed) and, for
+    TP_EMBED_ENGINE, the same waves through the WindVE engine.  Launches
+    must equal the meta trace's calls of one forward times the forwards
+    run.  Returns (summary, launches of the counted mesh runs)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.routing import Query
+    from repro_torch.core.sharded_backend import ShardedEmbedderBackend
+    from repro_torch.data.workload import make_queries
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import embedder
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    mesh = Mesh(devices, TP_MESH, ("data", "model"))
+    out = {"mesh": mesh.shape, "placement": [str(d) for d in devices],
+           "queries": TP_EMBED_QUERIES, "wave": TP_EMBED_WAVE,
+           "query_tokens": TP_EMBED_LEN, "max_tokens": TP_EMBED_TOKENS,
+           "cases": []}
+    counts, traced = {}, {}
+    for arch, policy in TP_EMBED:
+        cfg = get_config(arch)
+        if not cuda:
+            cfg = cfg.smoke()
+        params = embedder.init_embedder(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        qs = make_queries(TP_EMBED_QUERIES, cfg.vocab_size, TP_EMBED_LEN,
+                          seed=7)
+        waves = [[Query(qid=i, payload=q, length=TP_EMBED_LEN)
+                  for i, q in enumerate(qs)][j:j + TP_EMBED_WAVE]
+                 for j in range(0, TP_EMBED_QUERIES, TP_EMBED_WAVE)]
+        kw = dict(max_tokens=TP_EMBED_TOKENS, dtype=policy)
+        one = ShardedEmbedderBackend(cfg, params, device=dev, **kw)
+        whole_flops = {}
+        with kernel_flops(whole_flops):
+            want = np.concatenate([np.stack(one.embed_batch(w))
+                                   for w in waves])
+        whole_ms = embed_forward_ms(one, waves[0], sync)
+        del one
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        be = ShardedEmbedderBackend(cfg, params, mesh=mesh,
+                                    async_dispatch=True, **kw)
+        forwards = [0]
+        inner = be._embed
+
+        def counted(toks, mask, inner=inner, forwards=forwards):
+            forwards[0] += 1
+            return inner(toks, mask)
+
+        be._embed = counted
+        mesh_flops = {}
+        reset_launch_counts()                 # the counted mesh run ...
+        with kernel_flops(mesh_flops):
+            got = np.concatenate([np.stack(be.embed_batch(w))
+                                  for w in waves])
+        engine = None
+        if (arch, policy) == TP_EMBED_ENGINE:
+            engine = engine_serve(be, waves)
+        sync()
+        after = launch_counts()               # ... ends here
+        run = forwards[0]
+        counts = {k: counts.get(k, 0) + after[k] for k in after}
+        mesh_ms = embed_forward_ms(be, waves[0], sync)
+        if (cfg.name, policy) not in traced:
+            traced[(cfg.name, policy)] = embed_meta_calls(
+                cfg, policy, TP_EMBED_WAVE, TP_EMBED_TOKENS)
+        expect = {k: v * run for k, v in traced[(cfg.name, policy)].items()}
+        case = {"model": cfg.name, "policy": policy, "backend": be.name,
+                "device_count": be.device_count,
+                "min_batch_bucket": be.min_batch_bucket,
+                "forwards": run, **embed_held(got, want, policy),
+                "flops_over_whole": {
+                    k: mesh_flops[k] / whole_flops[k] for k in mesh_flops
+                    if whole_flops.get(k)},
+                "launches": {k: after[k] for k in TP_EMBED_KERNELS},
+                "meta_kernel_calls": expect,
+                "whole_forward_ms": whole_ms, "mesh_forward_ms": mesh_ms}
+        if engine is not None:
+            case["engine"] = embed_held(engine, want, policy)
+            case["held"] = case["held"] and case["engine"]["held"]
+        if cuda:
+            case["mesh_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            # the plain versions count no launch
+            case["held"] = case["held"] and case["launches"] == expect
+        for k in TP_EMBED_SPLIT:
+            if k in whole_flops:
+                case["held"] = (case["held"] and
+                                abs(case["flops_over_whole"][k] - 1.0)
+                                < 1e-12)
+        out["cases"].append(case)
+        emit({"phase": "mesh", "tp_embed_case": case})
+        require(case["held"], f"{cfg.name}/{policy} on the mesh: {case}")
+        del be, params
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out, counts
+
+
 def phase_mesh(args, dev) -> dict:
     """The mesh layer: (a) bge's embed tier fanned out over 4 logical
     devices placed round-robin on the visible cards, against one device;
@@ -3132,17 +3427,24 @@ def phase_mesh(args, dev) -> dict:
     against the whole cache; (c) qwen2-72b, granite-moe-3b-a800m and
     hymba-1.5b served on (data 2, model 4) positions, weights split over
     model and the batch over data, against the same steps on the whole
-    tree.  The launches of the path are those of the fanned-out,
-    sequence-sharded and tensor-parallel runs."""
+    tree, and whisper-tiny's encoder-decoder on (data 2, model 4) and
+    (data 1, model 2) against its whole tree; (d) bge-large-zh-v1.5 under
+    the four serving policies and jina-v2 in fp32 served tensor parallel
+    on (data 2, model 4) through ShardedEmbedderBackend (bge fp32 also
+    through the WindVE engine), against the one-device backend.  The
+    launches of the path are those of the fanned-out, sequence-sharded
+    and tensor-parallel runs."""
     import gc
 
     import torch
 
-    from repro_torch.models import lm
+    from repro_torch.models import api, lm
 
     devices = mesh_devices(dev)
     emit({"phase": "mesh", "placement": [str(d) for d in devices]})
+    marks = [time.perf_counter()]
     fan, fan_counts = mesh_fanout(dev, devices)
+    marks.append(time.perf_counter())
     tp_devices = mesh_devices(dev, TP_MESH[0] * TP_MESH[1])
     tp, tp_counts = {}, {}
     for arch in TP_ARCHS:
@@ -3157,13 +3459,38 @@ def phase_mesh(args, dev) -> dict:
         tp_counts = {k: tp_counts.get(k, 0) + counts[k] for k in counts}
         emit({"phase": "mesh", "tp": {k: v for k, v in tp[arch].items()
                                       if k != "cases"}})
+    marks.append(time.perf_counter())
+    # whisper-tiny: fp32 weights and its stub frames from one generator
+    cfg = mesh_config(dev, ENC_ARCH)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = api.init_params(cfg, g, device=dev)
+    frames = torch.randn((TP_B, cfg.num_frames, cfg.d_model), generator=g,
+                         device=dev)
+    for shape in TP_ENC_MESHES:
+        key = f"{ENC_ARCH}@{shape[0]}x{shape[1]}"
+        tp[key], counts = mesh_tp(
+            dev, mesh_devices(dev, shape[0] * shape[1]), ENC_ARCH, params,
+            shape, {"frames": frames}, free=False)
+        tp_counts = {k: tp_counts.get(k, 0) + counts[k] for k in counts}
+        emit({"phase": "mesh", "tp": {k: v for k, v in tp[key].items()
+                                      if k != "cases"}})
+    del params, frames
+    gc.collect()
+    marks.append(time.perf_counter())
+    tp_embed, embed_counts = mesh_tp_embed(dev, tp_devices)
+    marks.append(time.perf_counter())
     counts = {k: fan_counts[k] + dec_counts[k] + tp_counts[k]
-              for k in fan_counts}
+              + embed_counts[k] for k in fan_counts}
     if dev.type == "cuda":
         for name in ("flash_attention", "pool_norm", "rmsnorm",
                      "flash_decode", "ssm_scan"):
             require(counts[name] > 0, f"{name} was not launched on the mesh "
                                       f"path: {counts}")
+        # the tensor-parallel embed part alone runs the serving kernels
+        for name in TP_EMBED_KERNELS:
+            require(embed_counts[name] > 0,
+                    f"{name} was not launched on the tensor-parallel embed "
+                    f"path: {embed_counts}")
         # one flash_decode launch a shard, a layer, a step
         want = (len(MESH_PROMPTS) * MESH_NEW * dec["layers"]
                 * MESH_POSITIONS)
@@ -3171,9 +3498,13 @@ def phase_mesh(args, dev) -> dict:
                 f"flash_decode launches {dec_counts['flash_decode']}, want "
                 f"{want}")
     return {"placement": [str(d) for d in devices], "fanout": fan,
-            "decode": dec, "tp": tp, "launches": counts,
+            "decode": dec, "tp": tp, "tp_embed": tp_embed, "launches": counts,
             "launches_by_part": {"fanout": fan_counts, "decode": dec_counts,
-                                 "tp": tp_counts}}
+                                 "tp": tp_counts, "tp_embed": embed_counts},
+            # (b) runs inside (c)'s loop, on qwen2-72b's tree
+            "seconds_by_part": dict(zip(
+                ("fanout", "decode_and_tp_decoders", "tp_whisper",
+                 "tp_embed"), (b - a for a, b in zip(marks, marks[1:]))))}
 
 
 def leaf_cosines(a, b, piece: int = 1 << 26) -> dict:

@@ -1,24 +1,38 @@
 """Device-sharded embedding serving backend: the embed tier fanned out
-over a data-parallel mesh, a pinned staging ring and stream-ordered async
-dispatch.
+over a ``(data, model)`` mesh, a pinned staging ring and stream-ordered
+async dispatch.
 
 The port of the reference's mesh backend:
 
 * **mesh fan-out** -- one embedding tier runs over a ``('data', 'model')``
-  mesh of N devices (``launch.mesh.make_serve_mesh``; a pool clamped to a
-  power of two, ``_serve_devices``).  Every padded batch is split into N
-  equal row blocks under ``serve_embed_shardings``' batch spec, each block
-  runs its forward on its own device's serving stream, and the rows come
-  back in order.  The batch bucket is floored at N so every block has
-  rows.  A device may appear several times in the pool (one card carrying
-  several logical shards); one device is the single-card backend.
+  mesh (``launch.mesh.make_serve_mesh`` over a pool clamped to a power of
+  two, ``_serve_devices``, or a caller's mesh) whose data axes hold N
+  positions.  Every padded batch is split into N equal row blocks under
+  ``serve_embed_shardings``' batch spec and the rows come back in order.
+  The batch bucket is floored at N so every block has rows.  With no
+  ``model`` axis each block runs its forward on its own position's
+  serving stream.  A device may appear several times in the pool (one
+  card carrying several logical shards); one device is the single-card
+  backend.
+* **tensor parallel** -- with a ``model`` axis of M > 1 the serve-mode
+  specs split the weights over it (``wq``/``wk``/``wv``/``w_in`` by
+  columns, ``wo``/``w_out`` by rows, the vocab; an int8 tree's
+  ``_scale`` leaves whole), and each data group's M positions run one
+  forward together (``models.tp.embed``): each layer on the position's
+  heads and weight blocks, the partial sums and gathers explicit
+  collectives, the vectors gathered over the data axes to the first
+  position.  A collective reads blocks that other positions wrote, so
+  every position on one device runs on one serving stream (the stream
+  of the device's first position) and the forward runs with each
+  device's serving stream current; cross-device copies are ordered by
+  PyTorch against the current streams of both devices.
 * **resident serving weights** -- the ``dtype`` policy (fp32 oracle,
   bf16, int8 or int8_w8a8) is realised ONCE at load on the home device
   (the mesh's first), then placed on every device with
-  ``parallel.sharding.shard`` under the serve-mode specs, which replicate
-  the embedder's weights (positions on one device share one copy).  The
-  ``pool_norm`` epilogue always accumulates fp32, so served vectors stay
-  fp32 unit vectors.
+  ``parallel.sharding.shard`` under the serve-mode specs (replicated
+  leaves: positions on one device share one copy).  The ``pool_norm``
+  epilogue always accumulates fp32, so served vectors stay fp32 unit
+  vectors.
 * **staging ring** -- a small ring of pinned host (tokens, mask) buffers
   per (B, S) bucket.  A ``non_blocking`` copy from pinned memory reads the
   host buffer after the call has returned, so a slot must not be refilled
@@ -72,11 +86,10 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
     two), else the one ``device``.  ``dtype`` / ``async_dispatch`` default
     to the serving flags (``embed_dtype`` / ``embed_async``), so a
     default-constructed backend is the paper-faithful fp32 synchronous
-    baseline.  ``device_count`` is the fan-out.  Counters are inherited
-    from the bucketed backend (``traces``, ``bucket_hits``,
-    ``real_tokens``/``padded_tokens``, ``truncated``).  A mesh whose
-    ``model`` axis would split the weights raises ``NotImplementedError``:
-    the embedder on a model axis is not ported.
+    baseline.  ``device_count`` is the fan-out over the data axes; a
+    ``model`` axis splits the weights (``tensor_parallel``).  Counters are
+    inherited from the bucketed backend (``traces``, ``bucket_hits``,
+    ``real_tokens``/``padded_tokens``, ``truncated``).
     """
 
     def __init__(self, cfg, params, max_tokens: int = 128, *,
@@ -104,13 +117,9 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
         if ndev != next_pow2(ndev):
             raise ValueError(f"data-parallel mesh size must be a power of "
                              f"two, got {ndev}")
-        if mesh.size != ndev:
-            raise NotImplementedError(
-                f"a serve mesh with a model axis, {mesh.shape}, splits the "
-                f"embedder's weights: tensor-parallel serving of the embedder "
-                f"is not ported (ROADMAP.md Queue 1 item 6)")
         self.mesh = mesh
         self.device_count = ndev
+        self.tensor_parallel = mesh.size != ndev
         # the parent realises the dtype policy ONCE at load (serve_params
         # validates it) on the home device; batch buckets must divide the
         # data axis: floor the bucket at the mesh size, a power of two
@@ -121,23 +130,32 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
                          telemetry=telemetry, dtype=dtype,
                          device=mesh.device_list[0])
         self.serve_dtype = self.compute_dtype
-        self.name = (f"torch-sharded/{cfg.name}@{ndev}dev/{dtype}"
-                     + ("+async" if self.async_dispatch else ""))
+        self.name = (f"torch-sharded/{cfg.name}@{ndev}dev"
+                     + (f"x{mesh.size // ndev}tp" if self.tensor_parallel
+                        else "")
+                     + f"/{dtype}" + ("+async" if self.async_dispatch else ""))
 
         # the weights laid out over the mesh under the serve-mode specs
-        # (replicated: positions on the home device keep its tree)
+        # (replicated leaves: positions on the home device keep its tree)
         psh, (_, self._batch_spec) = sharding.serve_embed_shardings(
             mesh, self.params)
-        placed = sharding.shard_tree(self.params, psh)
+        self._placed = sharding.shard_tree(self.params, psh)
         self._devices = mesh.device_list
-        self._replicas = [sharding.local_tree(placed, i)
-                          for i in range(len(self._devices))]
+        # data parallel: each position's forward on its own tree of blocks
+        self._replicas = (None if self.tensor_parallel else
+                          [sharding.local_tree(self._placed, i)
+                           for i in range(len(self._devices))])
         self._block_index = sharding.block_index
 
         cuda = self.device.type == "cuda"
-        self._streams = ([torch.cuda.Stream(d) for d in self._devices]
-                         if cuda else None)
+        self._streams = None
         if cuda:
+            # tensor parallel: one stream a device, shared by its positions
+            own: dict = {}
+            self._streams = [
+                own.setdefault(d, torch.cuda.Stream(d))
+                if self.tensor_parallel else torch.cuda.Stream(d)
+                for d in self._devices]
             # the weights were written on the current streams of the home
             # device and of each position's device: a serving stream must
             # not read them before those writes land
@@ -194,10 +212,30 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
                 out.append(t[idx].to(dev, non_blocking=True))
         return out
 
+    def _all_streams(self):
+        """Every device's serving stream current at once (the tensor-
+        parallel forward launches on all of them)."""
+        stack = contextlib.ExitStack()
+        for st in dict.fromkeys(self._streams or ()):
+            stack.enter_context(self._torch.cuda.stream(st))
+        return stack
+
     def _embed(self, toks, mask):
-        """Each position's forward on its rows (lists from ``_split``), on
-        its own stream; returns the list of per-position outputs.  Counts
-        new (B, S) shapes of the whole batch."""
+        """The forward of a batch split into row blocks (lists from
+        ``_split``, one a position): each position's on its rows, on its
+        own stream, or, tensor parallel, one forward over every position
+        (``models.tp.embed``).  Returns the list of per-position outputs,
+        or [the whole (B, D) output on the first position's device].
+        Counts new (B, S) shapes of the whole batch."""
+        if self.tensor_parallel:
+            from repro_torch.models import tp
+
+            self._count_shape((toks[0].shape[0] * self.device_count,
+                               toks[0].shape[1]))
+            with self._torch.inference_mode(), self._all_streams():
+                return [tp.embed(self._placed, self.cfg, toks, mask,
+                                 self.mesh, compute_dtype=self.compute_dtype,
+                                 act_quant=self.act_quant)]
         self._count_shape((sum(t.shape[0] for t in toks), toks[0].shape[1]))
         outs = []
         with self._torch.inference_mode():
@@ -281,6 +319,16 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
                 else:
                     self._staging_pending.pop(k, None)
 
+    def _row_blocks(self, parts):
+        """(position, output, the batch rows it holds) of each output of
+        ``_embed``."""
+        if self.tensor_parallel:
+            return [(0, parts[0], slice(0, parts[0].shape[0]))]
+        whole = (sum(p.shape[0] for p in parts), parts[0].shape[1])
+        return [(pos, part, self._block_index(self.mesh, self._batch_spec,
+                                              whole, pos)[0])
+                for pos, part in enumerate(parts)]
+
     def embed_batch_async(self, queries: Sequence[Query]
                           ) -> Callable[[], List[np.ndarray]]:
         """Enqueue every chunk of the batch; returns the deferred fetch.
@@ -297,10 +345,7 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
         try:
             outs = []                 # per chunk: its real rows' blocks
             for n, parts in self._enqueue_chunks(queries):
-                whole = (sum(p.shape[0] for p in parts), parts[0].shape[1])
-                for pos, part in enumerate(parts):
-                    rows = self._block_index(self.mesh, self._batch_spec,
-                                             whole, pos)[0]
+                for pos, part, rows in self._row_blocks(parts):
                     lo, hi = min(rows.start, n), min(rows.stop, n)
                     if hi == lo:
                         continue            # padding rows only
@@ -314,7 +359,7 @@ class ShardedEmbedderBackend(BucketedEmbedderBackend):
                     outs.append(host)
             done = []
             if self._streams is not None:
-                for st in self._streams:
+                for st in dict.fromkeys(self._streams):
                     ev = torch.cuda.Event()
                     ev.record(st)
                     done.append(ev)

@@ -26,8 +26,11 @@ slot positions ``kpos`` (Sc,), the encoder's ``cross_k``/``cross_v`` (L,
 B, F, KV, hd), computed once in ``prefill``, and ``pos``, the next
 position, as a Python int, as in ``models.lm``.  ``decode_step`` writes
 the new token's k and v into the cache's tensors in place and returns the
-cache with ``pos`` advanced.  The encoder-decoder configs have no sliding
-window and no RoPE (whisper's positions are sinusoidal).
+cache with ``pos`` advanced.  On a tree placed over a ``(data, model)``
+mesh the same steps run on the mesh's positions (``models.tp``'s
+``encdec_prefill`` and ``encdec_decode_step``).  The encoder-decoder
+configs have no sliding window and no RoPE (whisper's positions are
+sinusoidal).
 """
 from __future__ import annotations
 

@@ -29,8 +29,8 @@ which picks the same way.  Under W8A8 an input that feeds several weights
 (q, k and v; gate and up) is quantized once for all of them
 (``dense_apply_many``).  The MoE experts' products are batched matrix
 products (``torch.einsum``), and a decode step's cross attention
-(``cross_decode``) is two ``einsum``s and a softmax, as the reference
-computes them outside any kernel.
+(``cross_decode``, ``cross_attend``) is two ``einsum``s and a softmax, as
+the reference computes them outside any kernel.
 
 A mesh's positions (``models.tp``) run these functions on their blocks:
 the mamba mixer in pieces (``mamba_conv``, ``mamba_ssm_inputs``, the scan
@@ -380,35 +380,50 @@ def attn_decode_sharded(p: Params, cfg: ModelConfig, x1: torch.Tensor,
     return y, cache_k, cache_v
 
 
+def cross_attend(q: torch.Tensor, cross_k: torch.Tensor,
+                 cross_v: torch.Tensor, hd: int) -> torch.Tensor:
+    """One token's projected query q (B, 1, H * hd) against the encoder's
+    cached k and v (B, F, KV, hd): the attention output (B, 1, H * hd) in
+    q's dtype.  The head counts are the tensors' (a mesh position passes
+    its heads).  Plain ops, rounding where the reference rounds: fp32
+    scores of q and ``cross_k`` cast to q's dtype, an fp32 softmax, the
+    weights cast to ``cross_v``'s dtype before an fp32-accumulated PV."""
+    B, KV = q.shape[0], cross_k.shape[2]
+    qh = q.reshape(B, KV, -1, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qh.float(),
+                     cross_k.to(q.dtype).float()) / math.sqrt(hd)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", w.to(cross_v.dtype).float(),
+                       cross_v.float())
+    return out.reshape(B, 1, -1).to(q.dtype)
+
+
 def cross_decode(p: Params, cfg: ModelConfig, x1: torch.Tensor,
                  cross_k: torch.Tensor, cross_v: torch.Tensor,
                  kv_len: int) -> torch.Tensor:
     """One token's cross attention, x1 (B, 1, D), against the encoder's
     cached k and v (B, F, KV, hd), in plain ops as the reference computes
-    it outside any kernel, rounding where it rounds: fp32 scores of the
-    compute-dtype q and ``cross_k`` cast to q's dtype, an fp32 softmax, the
-    weights cast to ``cross_v``'s dtype before an fp32-accumulated PV, the
-    output cast to x1's dtype before ``wo``.  Every frame is valid:
-    ``kv_len`` is unused, as in the reference."""
-    hd = cfg.resolved_head_dim
-    B = x1.shape[0]
-    H, KV = cfg.num_heads, cfg.num_kv_heads
-    q = (x1 @ p["wq"].to(x1.dtype)).reshape(B, KV, H // KV, hd)
-    s = torch.einsum("bkgh,bskh->bkgs", q.float(),
-                     cross_k.to(q.dtype).float()) / math.sqrt(hd)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskh->bkgh", w.to(cross_v.dtype).float(),
-                       cross_v.float())
-    return out.reshape(B, 1, H * hd).to(x1.dtype) @ p["wo"].to(x1.dtype)
+    it outside any kernel (``cross_attend``), the output cast to x1's
+    dtype before ``wo``.  Every frame is valid: ``kv_len`` is unused, as
+    in the reference."""
+    q = x1 @ p["wq"].to(x1.dtype)
+    return (cross_attend(q, cross_k, cross_v, cfg.resolved_head_dim)
+            @ p["wo"].to(x1.dtype))
+
+
+def mlp_hidden(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               act_quant: bool = False) -> torch.Tensor:
+    """The MLP's hidden activation, what its down projection takes."""
+    if cfg.act == "silu":
+        g, u = dense_apply_many(p, ("w_gate", "w_up"), x, act_quant)
+        return F.silu(g) * u
+    return F.gelu(dense_apply(p, "w_in", x, act_quant), approximate="tanh")
 
 
 def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor,
               act_quant: bool = False) -> torch.Tensor:
-    if cfg.act == "silu":
-        g, u = dense_apply_many(p, ("w_gate", "w_up"), x, act_quant)
-        return dense_apply(p, "w_down", F.silu(g) * u, act_quant)
-    h = F.gelu(dense_apply(p, "w_in", x, act_quant), approximate="tanh")
-    return dense_apply(p, "w_out", h, act_quant)
+    down = "w_down" if cfg.act == "silu" else "w_out"
+    return dense_apply(p, down, mlp_hidden(p, cfg, x, act_quant), act_quant)
 
 
 # ----------------------------------------------------------------------------

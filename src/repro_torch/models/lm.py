@@ -286,7 +286,9 @@ def shard_cache(cache: Params, shard_ctx) -> Params:
 
 def unshard_cache(cache: Params, device=None) -> Params:
     """A sharded cache as whole tensors, on ``device`` (default: the first
-    mesh position's)."""
+    mesh position's): every ``Sharded`` leaf (a decoder's ``k``, ``v``,
+    ``kpos``, ``ssm``, ``conv``; whisper's ``cross_k``, ``cross_v`` too),
+    ``pos`` as it is."""
     return {name: (sharding.unshard(t, device)
                    if isinstance(t, sharding.Sharded) else t)
             for name, t in cache.items()}

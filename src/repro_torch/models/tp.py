@@ -1,11 +1,15 @@
-"""The decoders' serving steps over a ``(data, model)`` mesh, run in one
-process over the mesh's positions.
+"""Serving over a ``(data, model)`` mesh, run in one process over the
+mesh's positions: the decoders' steps (``prefill``, ``decode_step``),
+whisper's encoder-decoder steps (``encdec_prefill``,
+``encdec_decode_step``) and the embedder's forward (``embed``, which
+``core.sharded_backend`` serves).
 
-``prefill`` and ``decode_step`` take a param tree placed over the mesh
-(``parallel.sharding.shard_tree`` under ``steps/serve.serve_shardings``)
-and run each layer at every position in turn, on that position's blocks;
-what GSPMD inserts between the reference's sharded operands is here an
-explicit collective of ``parallel.collectives``:
+Each takes a param tree placed over the mesh
+(``parallel.sharding.shard_tree`` under ``steps/serve.serve_shardings``,
+or ``serve_embed_shardings`` for the embedder) and runs each layer at
+every position in turn, on that position's blocks; what GSPMD inserts
+between the reference's sharded operands is here an explicit collective
+of ``parallel.collectives``:
 
 * the batch runs over the data axes (where it splits evenly: a batch
   smaller than them is whole at every position);
@@ -17,6 +21,18 @@ explicit collective of ``parallel.collectives``:
   is gathered over ``model``, the position attends whole heads and slices
   its ``wo`` rows out of the output;
 * the MLP: column-split gate/up (in), row-split down (out), summed;
+* int8 projections (a quantized embedder tree): a column-split weight's
+  position cuts its columns out of the whole ``{name}_scale``; a row-split
+  one applies the whole scale to its partial.  Under W8A8 a row is
+  quantized against its whole absmax, as the reference quantizes it: for
+  a row-split weight the position gathers the input over ``model``,
+  quantizes the whole row and multiplies its columns of the codes;
+* whisper: the encoder, the decoder's self attention and its cross
+  attention each read their own stack's projections (``enc_blocks``,
+  ``dec_blocks`` ``attn`` / ``xattn``), each on the position's heads or,
+  where the block cuts a head, on every head gathered; a decode step's
+  cross attention is plain ops (``layers.cross_attend``) on the
+  position's heads of the cross cache;
 * MoE: the experts over ``model`` where their count divides it, else the
   FFN dims (the reference's ``_MOE_FALLBACK``); the partial combines are
   summed.  The global dispatch takes its capacity from every token of the
@@ -33,8 +49,9 @@ explicit collective of ``parallel.collectives``:
 * a weight whose spec names a data axis (the train-mode rules, i.e.
   ``serve_tp_only`` off) is gathered over it at its use and dropped.
 
-The cache is a dict of ``Sharded`` leaves and ``pos``: ``k``/``v`` with the
-batch over the data axes and the heads as the K/V projections leave them,
+The cache is a dict of ``Sharded`` leaves and ``pos``: ``k``/``v`` (and
+whisper's ``cross_k``/``cross_v``) with the batch over the data axes and
+the heads as the K/V projections leave them,
 or, under ``decode_shard_map`` (``seq_shard``), the sequence over
 ``model`` (over the data axes and ``model`` jointly for a batch smaller
 than the data axes) with every head; ``ssm``/``conv`` channels over
@@ -52,20 +69,24 @@ reach the cost mode (``roofline.op_cost``).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import embedder as E
 from repro_torch.models import layers as L
 from repro_torch.models.embedder import layer_params
 from repro_torch.models.lm import _mix, add_positions, cache_len
+from repro_torch.models.quantize import SCALE_SUFFIX
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import sharding
 
 Params = Dict[str, Any]
 MODEL = ("model",)
+ATTN = ("blocks", "attn")
 
 
 def _flat(tree, path=()) -> Dict[Tuple[str, ...], Any]:
@@ -110,6 +131,17 @@ def _pick(t: torch.Tensor, lo: int, hi: int, index) -> torch.Tensor:
     return t[:, :, torch.tensor(index, device=t.device)]
 
 
+@dataclass(frozen=True)
+class Heads:
+    """How the projections of one attention block lie over ``model``:
+    whether q's (k's) columns are split, and whether the split falls on
+    head boundaries (else the projection is gathered)."""
+    q_split: bool
+    q_heads: bool
+    kv_split: bool
+    kv_heads: bool
+
+
 class Run:
     """One step over the positions of a mesh: each position's blocks, its
     coordinates and rows, and the collectives over its axes.  A value that
@@ -124,7 +156,9 @@ class Run:
         dn = sharding._dp_size(mesh)
         self.mi = [C.axis_index(mesh, p, self.model) for p in range(self.n)]
         self.di = [C.axis_index(mesh, p, self.dp) for p in range(self.n)]
-        # the batch over the data axes where it splits evenly (batch_pspecs)
+        # the whole batch B, over the data axes where it splits evenly
+        # (batch_pspecs): b rows a position
+        self.B = batch
         self.b_split = dn > 1 and batch >= dn and batch % dn == 0
         self.b = batch // dn if self.b_split else batch
         self.b_spec = ((self.dp if len(self.dp) > 1 else self.dp[0])
@@ -133,13 +167,20 @@ class Run:
         self.specs = {k: s.spec for k, s in flat.items()}
         self.local = [_unflat({k: s.blocks[p] for k, s in flat.items()})
                       for p in range(self.n)]
-        H, KV = cfg.num_heads, cfg.num_kv_heads
-        self.q_split = self.split(("blocks", "attn", "wq"), -1)
-        self.kv_split = self.split(("blocks", "attn", "wk"), -1)
-        self.q_heads = self.q_split and H % self.M == 0
-        self.kv_heads = self.kv_split and KV % self.M == 0
+        # the decoders' (and the embedder's) attention block
+        self.attn = self.heads(ATTN)
+        self.q_split, self.q_heads = self.attn.q_split, self.attn.q_heads
+        self.kv_split, self.kv_heads = self.attn.kv_split, self.attn.kv_heads
 
     # -- layout -------------------------------------------------------------
+    def heads(self, path: Tuple[str, ...]) -> Heads:
+        """The layout of the attention block at ``path`` (a stack and its
+        sub-dict, e.g. ``("dec_blocks", "xattn")``)."""
+        q = self.split(path + ("wq",), -1)
+        kv = self.split(path + ("wk",), -1)
+        return Heads(q, q and self.cfg.num_heads % self.M == 0,
+                     kv, kv and self.cfg.num_kv_heads % self.M == 0)
+
     def split(self, path, dim: int) -> bool:
         """Whether leaf ``path``'s dim ``dim`` is split over ``model``."""
         spec = self.specs.get(path)
@@ -159,7 +200,8 @@ class Run:
                      lead: int) -> List[Params]:
         """Each leaf of ``trees`` (one a position) with the dims its spec
         splits over data axes gathered (``lead`` leading spec entries, a
-        layer dim indexed away, skipped)."""
+        layer dim indexed away, skipped), and each int8 weight's whole
+        ``_scale`` cut to the columns the weight's block holds."""
         flats = [_flat(t) for t in trees]
         for path in flats[0]:
             spec = self.specs[prefix + path][lead:]
@@ -170,6 +212,19 @@ class Run:
                                        axes, dim)
                     for f, g in zip(flats, got):
                         f[path] = g
+        for path in flats[0]:
+            if not path[-1].endswith(SCALE_SUFFIX):
+                continue
+            base = path[:-1] + (path[-1][:-len(SCALE_SUFFIX)],)
+            spec = self.specs.get(prefix + base, ())[lead:]
+            # the data part of the columns' split was gathered above
+            axes = tuple(a for a in _entry(spec[-1] if spec else None)
+                         if a not in self.dp)
+            if not axes:
+                continue
+            for p, f in enumerate(flats):
+                n, i = f[base].shape[-1], C.axis_index(self.mesh, p, axes)
+                f[path] = f[path][..., i * n:(i + 1) * n]
         return [_unflat(f) for f in flats]
 
     def top(self, name: str) -> List[Any]:
@@ -177,11 +232,10 @@ class Run:
         return [t[name] for t in self._gather_data(
             [{name: loc[name]} for loc in self.local], (), 0)]
 
-    def layer(self, i: int) -> List[Params]:
-        """Layer i's params at every position, gathered."""
+    def layer(self, i: int, stack: str = "blocks") -> List[Params]:
+        """Layer i of ``stack``'s params at every position, gathered."""
         return self._gather_data(
-            [layer_params(loc["blocks"], i) for loc in self.local],
-            ("blocks",), 1)
+            [layer_params(loc[stack], i) for loc in self.local], (stack,), 1)
 
     def sum_model(self, xs):
         return C.all_reduce_sum(xs, self.mesh, self.model)
@@ -190,8 +244,10 @@ class Run:
         return C.all_gather(xs, self.mesh, self.model, dim)
 
     # -- embedding and head -------------------------------------------------
-    def embed(self, toks, pos_offset: int, cdt, extra=None):
-        """Token embeddings at every position (h list, positions list)."""
+    def tok_embed(self, toks, cdt) -> List[torch.Tensor]:
+        """The token rows of the embedding at every position, in ``cdt``:
+        a vocab split over ``model`` is summed (a token outside a
+        position's rows adds zeros)."""
         emb = self.top("embed")
         vsplit = self.split(("embed",), 0)
         hs = []
@@ -205,18 +261,21 @@ class Run:
                 hs.append(e.masked_fill(~inside[..., None], 0))
             else:
                 hs.append(emb[p][t].to(cdt))
-        if vsplit:
-            hs = self.sum_model(hs)
+        return self.sum_model(hs) if vsplit else hs
+
+    def embed(self, toks, pos_offset: int, cdt, extra=None):
+        """Token embeddings at every position (h list, positions list)."""
+        hs = self.tok_embed(toks, cdt)
         out = [add_positions(self.cfg, h, pos_offset,
                              None if extra is None else extra[p])
                for p, h in enumerate(hs)]
         return [o[0] for o in out], [o[1] for o in out]
 
-    def unembed(self, hs) -> torch.Tensor:
-        """The whole logits (B, S, V) of hs on the first position's
-        device."""
+    def unembed(self, hs, norm: str = "final_norm") -> torch.Tensor:
+        """The whole logits (B, S, V) of hs, after the ``norm`` leaf, on
+        the first position's device."""
         cfg = self.cfg
-        norm = self.top("final_norm")
+        norm = self.top(norm)
         if cfg.tie_embeddings:
             heads = [e.T for e in self.top("embed")]
             vsplit = self.split(("embed",), 0)
@@ -234,15 +293,23 @@ class Run:
         return out[0]
 
     # -- attention ----------------------------------------------------------
-    def _qkv(self, ps, xs, pos_of):
-        """Per position: q (b, S, Hl, hd) and k, v (b, S, KVl, hd), rotated
-        (``pos_of(p)``: the positions), each projection gathered over
-        ``model`` where its block cuts a head."""
+    def _qkv(self, ps, xs, pos_of, lay: Heads, kv_xs=None,
+             act_quant: bool = False):
+        """Per position: q (b, S, Hl, hd) and k, v (b, Skv, KVl, hd), k and
+        v from ``kv_xs`` (cross attention) or from xs, rotated in self
+        attention (``pos_of(p)``: the positions), each projection gathered
+        over ``model`` where its block cuts a head."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         qs, ks, vs = [], [], []
-        for p, x in zip(ps, xs):
-            q, k, v = L.dense_apply_many(p, ("wq", "wk", "wv"), x)
+        for i, (p, x) in enumerate(zip(ps, xs)):
+            if kv_xs is None:
+                q, k, v = L.dense_apply_many(p, ("wq", "wk", "wv"), x,
+                                             act_quant)
+            else:
+                q = L.dense_apply(p, "wq", x, act_quant)
+                k, v = L.dense_apply_many(p, ("wk", "wv"), kv_xs[i],
+                                          act_quant)
             if "bq" in p:
                 q = q + p["bq"].to(x.dtype)
                 k = k + p["bk"].to(x.dtype)
@@ -250,81 +317,131 @@ class Run:
             qs.append(q)
             ks.append(k)
             vs.append(v)
-        if self.q_split and not self.q_heads:
+        if lay.q_split and not lay.q_heads:
             qs = self.gather_model(qs, -1)
-        if self.kv_split and not self.kv_heads:
+        if lay.kv_split and not lay.kv_heads:
             ks, vs = self.gather_model(ks, -1), self.gather_model(vs, -1)
         out = []
         for p, (q, k, v) in enumerate(zip(qs, ks, vs)):
             q = q.reshape(*q.shape[:-1], -1, hd)
             k = k.reshape(*k.shape[:-1], -1, hd)
             v = v.reshape(*v.shape[:-1], -1, hd)
-            if cfg.rope_theta:
+            if cfg.rope_theta and kv_xs is None:
                 q = L.rope(q, pos_of(p), cfg.rope_theta)
                 k = L.rope(k, pos_of(p), cfg.rope_theta)
             out.append((q, k, v))
         return out
 
-    def _q_range(self, p: int) -> Tuple[int, int]:
+    def _q_range(self, p: int, lay: Heads) -> Tuple[int, int]:
         """The query heads position p attends."""
         H = self.cfg.num_heads
-        if not self.q_heads:
+        if not lay.q_heads:
             return 0, H
         n = H // self.M
         return self.mi[p] * n, (self.mi[p] + 1) * n
 
-    def _kv_view(self, p: int, t: torch.Tensor) -> torch.Tensor:
+    def _kv_view(self, p: int, t: torch.Tensor, lay: Heads) -> torch.Tensor:
         """The heads (dim 2) of k or v that position p's query heads read:
         t holds the position's own KV heads, or every KV head."""
         if t.shape[2] != self.cfg.num_kv_heads:
             return t                       # its own heads: block p of p
         G = self.cfg.num_heads // self.cfg.num_kv_heads
-        return _pick(t, *_heads_for(*self._q_range(p), G))
+        return _pick(t, *_heads_for(*self._q_range(p, lay), G))
 
-    def _out(self, ps, os_):
-        """wo on each position's (b, S, Hl * hd) attention output, sliced
-        to its wo rows where the heads were gathered; summed over model
-        where wo is row-split."""
+    def _out(self, ps, os_, lay: Heads, act_quant: bool = False):
+        """wo on each position's (b, S, Hl * hd) attention output (every
+        head's where the heads were gathered), summed over model where wo
+        is row-split."""
+        if not lay.q_split:
+            return [L.dense_apply(pp, "wo", o, act_quant)
+                    for pp, o in zip(ps, os_)]
+        return self.rows_proj(ps, "wo", os_, act_quant,
+                              whole=not lay.q_heads)
+
+    def rows_proj(self, ps, name: str, xs, act_quant: bool = False,
+                  whole: bool = False):
+        """``x @ p[name]`` for a weight whose rows are split over
+        ``model``, summed over it: xs[p] holds the columns of x that
+        position p's rows take or, with ``whole``, every column (cut
+        here).  Under W8A8 (an int8 weight, ``act_quant``) each row is
+        quantized against its whole absmax, as the reference quantizes
+        it: the position quantizes the whole row (gathered over ``model``
+        where it holds only its columns) and multiplies its columns of the
+        codes by its rows, with the row's scale and the whole weight
+        scale."""
+        quant = act_quant and name + SCALE_SUFFIX in ps[0]
+        if quant and not whole:
+            xs, whole = self.gather_model(xs, -1), True
         ys = []
-        for p, (pp, o) in enumerate(zip(ps, os_)):
-            if self.q_split and not self.q_heads:
-                n = pp["wo"].shape[0]
-                o = o[..., self.mi[p] * n:(self.mi[p] + 1) * n]
-            ys.append(L.dense_apply(pp, "wo", o))
-        return self.sum_model(ys) if self.q_split else ys
+        for p, (pp, x) in enumerate(zip(ps, xs)):
+            n = pp[name].shape[0]
+            cols = (slice(self.mi[p] * n, (self.mi[p] + 1) * n) if whole
+                    else slice(None))
+            if quant:
+                x8, x_scale = L.quantize_rows(x)
+                ys.append(L.w8a8_matmul(x8[..., cols], pp[name], x_scale,
+                                        pp[name + SCALE_SUFFIX],
+                                        out_dtype=x.dtype))
+            else:
+                ys.append(L.dense_apply(pp, name, x[..., cols]))
+        return self.sum_model(ys)
 
-    def attn_prefill(self, ps, xs, positions):
+    def attn_prefill(self, ps, xs, positions, lay: Optional[Heads] = None,
+                     *, causal: bool = True, kv_len=None, kv_xs=None,
+                     act_quant: bool = False):
         """Full-sequence attention at every position: (y list, k list, v
-        list), k and v (b, S, KVl, hd) as the cache holds them."""
+        list), k and v (b, Skv, KVl, hd) as the cache holds them.  Self
+        attention, causal under the config's window or bidirectional with
+        each position's ``kv_len`` rows, or cross attention over
+        ``kv_xs``."""
         cfg = self.cfg
-        qkv = self._qkv(ps, xs, lambda p: positions[p])
+        lay = lay or self.attn
+        qkv = self._qkv(ps, xs, lambda p: positions[p], lay, kv_xs,
+                        act_quant)
         os_ = []
         for p, (q, k, v) in enumerate(qkv):
-            out = L.flash_attention(q.transpose(1, 2),
-                                    self._kv_view(p, k).transpose(1, 2),
-                                    self._kv_view(p, v).transpose(1, 2),
-                                    causal=True, window=cfg.sliding_window)
+            out = L.flash_attention(
+                q.transpose(1, 2), self._kv_view(p, k, lay).transpose(1, 2),
+                self._kv_view(p, v, lay).transpose(1, 2), causal=causal,
+                window=cfg.sliding_window if causal else 0,
+                kv_len=None if kv_len is None else kv_len[p])
             os_.append(out.transpose(1, 2).reshape(*q.shape[:2], -1))
-        ys = self._out(ps, os_)
+        ys = self._out(ps, os_, lay, act_quant)
         return ys, [t[1] for t in qkv], [t[2] for t in qkv]
 
-    def attn_decode(self, ps, xs, pos: int, ck, cv, kpos):
+    def attn_decode(self, ps, xs, pos: int, ck, cv, kpos,
+                    lay: Optional[Heads] = None):
         """One token at every position against its cache blocks (b, Sc,
         KVl, hd), written in place; the read over the heads it holds."""
         cfg = self.cfg
-        qkv = self._qkv(ps, xs, lambda p: L._positions(pos, xs[p].device))
+        lay = lay or self.attn
+        qkv = self._qkv(ps, xs, lambda p: L._positions(pos, xs[p].device),
+                        lay)
         os_ = []
         for p, (q, k, v) in enumerate(qkv):
             slot = L.cache_slot(cfg, pos, ck[p].shape[1])
             ck[p][:, slot] = k[:, 0]
             cv[p][:, slot] = v[:, 0]
-            kk, vv = self._kv_view(p, ck[p]), self._kv_view(p, cv[p])
+            kk, vv = self._kv_view(p, ck[p], lay), self._kv_view(p, cv[p], lay)
             b, _, hl, hd = q.shape
             out = L.flash_decode(q[:, 0].reshape(b, kk.shape[2], -1, hd),
                                  kk, vv, kpos[p], pos,
                                  window=cfg.sliding_window)
             os_.append(out.reshape(b, 1, hl * hd))
-        return self._out(ps, os_)
+        return self._out(ps, os_, lay)
+
+    def cross_decode(self, ps, xs, cks, cvs, lay: Heads):
+        """One token's cross attention at every position against its
+        blocks of the cross cache (b, F, KVl, hd), in plain ops
+        (``layers.cross_attend``) over the heads it holds."""
+        hd = self.cfg.resolved_head_dim
+        qs = [x @ pp["wq"].to(x.dtype) for pp, x in zip(ps, xs)]
+        if lay.q_split and not lay.q_heads:
+            qs = self.gather_model(qs, -1)
+        os_ = [L.cross_attend(q, self._kv_view(p, cks[p], lay),
+                              self._kv_view(p, cvs[p], lay), hd)
+               for p, q in enumerate(qs)]
+        return self._out(ps, os_, lay)
 
     def attn_decode_seq(self, ps, xs, pos: int, ck, cv, kpos, seq_axes):
         """One token against a cache whose sequence is split over
@@ -335,7 +452,8 @@ class Run:
         on its first position."""
         cfg = self.cfg
         KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-        qkv = self._qkv(ps, xs, lambda p: L._positions(pos, xs[p].device))
+        qkv = self._qkv(ps, xs, lambda p: L._positions(pos, xs[p].device),
+                        self.attn)
         qs, ks, vs = ([t[i] for t in qkv] for i in range(3))
         if self.q_heads:
             qs = self.gather_model(qs, 2)
@@ -361,7 +479,7 @@ class Run:
             n = cfg.num_heads // self.M * hd
             os_ = [o[..., self.mi[p] * n:(self.mi[p] + 1) * n]
                    for p, o in enumerate(os_)]
-        return self._out(ps, os_)
+        return self._out(ps, os_, self.attn)
 
     # -- mamba --------------------------------------------------------------
     def _mamba_split(self) -> bool:
@@ -400,20 +518,23 @@ class Run:
                            conv)
 
     # -- feed-forward -------------------------------------------------------
-    def ffn(self, lp, hs):
-        """The norm2 + MLP / MoE residual at every position."""
+    def ffn(self, lp, hs, stack: str = "blocks", act_quant: bool = False):
+        """The norm2 + MLP / MoE residual at every position, on layer
+        params ``lp`` of ``stack``."""
         cfg = self.cfg
         if not cfg.d_ff:
             return hs
         xs = [L.apply_norm(p["norm2"], cfg, h) for p, h in zip(lp, hs)]
         ps = [p["ffn"] for p in lp]
+        down = "w_down" if cfg.act == "silu" else "w_out"
         if cfg.is_moe:
             ys = self._moe(ps, xs)
+        elif self.split((stack, "ffn", down), 1):
+            ys = self.rows_proj(ps, down, [
+                L.mlp_hidden(p, cfg, x, act_quant) for p, x in zip(ps, xs)],
+                act_quant)
         else:
-            ys = [L.apply_mlp(p, cfg, x) for p, x in zip(ps, xs)]
-            down = "w_down" if cfg.act == "silu" else "w_out"
-            if self.split(("blocks", "ffn", down), 1):
-                ys = self.sum_model(ys)
+            ys = [L.apply_mlp(p, cfg, x, act_quant) for p, x in zip(ps, xs)]
         return [h + y for h, y in zip(hs, ys)]
 
     def _moe(self, ps, xs):
@@ -522,21 +643,27 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, mesh, *,
     return logits, cache
 
 
+def _heads_leaf(run: Run, blocks, Lc: int, S: int) -> sharding.Sharded:
+    """A (Lc, B, S, KV, hd) cache leaf from each position's blocks, its
+    heads over ``model`` where the projections left them split."""
+    cfg = run.cfg
+    heads = "model" if blocks[0].shape[3] != cfg.num_kv_heads else None
+    return sharding.Sharded.of(
+        run.mesh, (None, run.b_spec, None, heads, None),
+        (Lc, run.B, S, cfg.num_kv_heads, cfg.resolved_head_dim), blocks)
+
+
 def _attn_cache(run: Run, kc, vc, kpos, seq_shard: bool) -> Params:
     """The k, v and kpos leaves over the mesh: the heads as the projections
     left them, or every head with the sequence split."""
-    mesh, KV = run.mesh, run.cfg.num_kv_heads
+    mesh = run.mesh
     Lc, _, Sc, _, hd = kc[0].shape
-    B = run.b * C.axis_size(mesh, run.dp) if run.b_split else run.b
-    shape = (Lc, B, Sc, KV, hd)
     seq = _seq_entry(run, Sc) if seq_shard else None
     if seq is None:
-        heads = "model" if kc[0].shape[3] != KV else None
-        spec = (None, run.b_spec, None, heads, None)
-        return {"k": sharding.Sharded.of(mesh, spec, shape, kc),
-                "v": sharding.Sharded.of(mesh, spec, shape, vc),
+        return {"k": _heads_leaf(run, kc, Lc, Sc),
+                "v": _heads_leaf(run, vc, Lc, Sc),
                 "kpos": sharding.Sharded.of(mesh, (), (Sc,), kpos)}
-    if run.kv_heads:
+    if run.attn.kv_heads:
         kc, vc = run.gather_model(kc, 3), run.gather_model(vc, 3)
     axes = _entry(seq)
     n = Sc // C.axis_size(mesh, axes)
@@ -546,6 +673,7 @@ def _attn_cache(run: Run, kc, vc, kpos, seq_shard: bool) -> Params:
                 for p, t in enumerate(blocks)]
 
     spec = (None, run.b_spec, seq, None, None)
+    shape = (Lc, run.B, Sc, run.cfg.num_kv_heads, hd)
     return {"k": sharding.Sharded.of(mesh, spec, shape, cut(kc, 2)),
             "v": sharding.Sharded.of(mesh, spec, shape, cut(vc, 2)),
             "kpos": sharding.Sharded.of(mesh, (seq,), (Sc,), cut(kpos, 0))}
@@ -598,4 +726,158 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     return run.unembed(hs)[:, 0], {**cache, "pos": pos + 1}
 
 
-__all__ = ["Run", "prefill", "decode_step"]
+# -- the embedder -------------------------------------------------------------
+def embed(params: Params, cfg: ModelConfig, tokens, mask, mesh, *,
+          compute_dtype=None, act_quant: bool = False) -> torch.Tensor:
+    """``embedder.embed`` on a tree placed over ``mesh``: the (B, D) fp32
+    unit vectors, whole on the first position's device.
+
+    ``tokens`` and ``mask`` are whole (B, S) tensors, or lists of each
+    position's rows (the batch over the data axes, as ``Run.split_rows``
+    and the serving backend's batch spec cut it).  Each layer runs on the
+    position's heads with its rows' ``kv_len`` (bidirectional), its
+    ``wo``/``w_out`` partials summed over ``model``; the final norm and
+    ``pool_norm`` run on the replicated hidden state of each data group's
+    rows, and the vectors are gathered over the data axes."""
+    cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
+    groups = C.groups(mesh, MODEL if "model" in mesh.shape else ())
+    if isinstance(tokens, torch.Tensor):
+        B = tokens.shape[0]
+    else:
+        B = sum(tokens[g[0]].shape[0] for g in groups)
+    run = Run(cfg, mesh, params, B)
+    if isinstance(tokens, torch.Tensor):
+        tokens, mask = run.split_rows(tokens), run.split_rows(mask)
+    S = tokens[0].shape[1]
+    positions = [torch.arange(S, dtype=torch.int32, device=d)
+                 for d in run.devices]
+    hs = [h + L.sinusoidal_positions(pos, cfg.d_model).to(h.dtype)
+          for h, pos in zip(run.tok_embed(tokens, cdt), positions)]
+    kv_len = [(m != 0).sum(-1).to(torch.int32) for m in mask]
+    for i in range(params["blocks"]["norm1"]["scale"].shape[0]):
+        lp = run.layer(i)
+        xs = [L.apply_norm(p["norm1"], cfg, h) for p, h in zip(lp, hs)]
+        a = run.attn_prefill([p["attn"] for p in lp], xs, positions,
+                             causal=False, kv_len=kv_len,
+                             act_quant=act_quant)[0]
+        hs = run.ffn(lp, [h + y for h, y in zip(hs, a)],
+                     act_quant=act_quant)
+    norm = run.top("final_norm")
+    pool = "mean" if cfg.pool == "mean" else "cls"
+    out = [E.pool_norm(L.apply_norm(norm[p], cfg, h), mask[p], pool=pool)
+           for p, h in enumerate(hs)]
+    if run.b_split:
+        out = C.all_gather(out, mesh, run.dp, 0)
+    return out[0]
+
+
+# -- whisper's encoder-decoder ------------------------------------------------
+def _encode(run: Run, frames, cdt) -> List[torch.Tensor]:
+    """``encdec.encode`` at every position on its rows of the frames."""
+    cfg = run.cfg
+    lay = run.heads(("enc_blocks", "attn"))
+    F = frames[0].shape[1]
+    positions = [torch.arange(F, dtype=torch.int32, device=d)
+                 for d in run.devices]
+    hs = [f.to(cdt) + L.sinusoidal_positions(pos, cfg.d_model).to(cdt)
+          for f, pos in zip(frames, positions)]
+    for i in range(cfg.encoder_layers):
+        lp = run.layer(i, "enc_blocks")
+        xs = [L.apply_norm(p["norm1"], cfg, h) for p, h in zip(lp, hs)]
+        a = run.attn_prefill([p["attn"] for p in lp], xs, positions, lay,
+                             causal=False)[0]
+        hs = run.ffn(lp, [h + y for h, y in zip(hs, a)], "enc_blocks")
+    norm = run.top("enc_norm")
+    return [L.apply_norm(norm[p], cfg, h) for p, h in enumerate(hs)]
+
+
+def encdec_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   frames: torch.Tensor, mesh, *,
+                   cache_dtype=torch.bfloat16, max_len: Optional[int] = None,
+                   compute_dtype=None):
+    """``encdec.prefill`` on a tree placed over ``mesh``: (the last
+    position's logits (B, V), whole on the first position's device; the
+    cache over the mesh).  The encoder runs on each position's rows of the
+    frames and heads; each decoder layer's causal self attention and its
+    cross attention (the prompt over the encoder's states) go through
+    ``flash_attention`` on the position's heads.  The cache's ``k``/``v``
+    and ``cross_k``/``cross_v`` hold the heads as the projections leave
+    them (every head where a block cuts one)."""
+    cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
+    B, S = tokens.shape
+    run = Run(cfg, mesh, params, B)
+    enc = _encode(run, run.split_rows(frames), cdt)
+    hs, positions = run.embed(run.split_rows(tokens), 0, cdt)
+    self_at, cross_at = (run.heads(("dec_blocks", "attn")),
+                         run.heads(("dec_blocks", "xattn")))
+    Lc, F = cfg.num_layers, enc[0].shape[1]
+    Sc = cache_len(cfg, max(S, max_len or S))
+    kpos = []
+    for p in range(run.n):
+        kp = torch.full((Sc,), -1, dtype=torch.int32, device=run.devices[p])
+        kp[:S] = positions[p]
+        kpos.append(kp)
+    bufs: Dict[str, List[torch.Tensor]] = {}
+    for i in range(Lc):
+        lp = run.layer(i, "dec_blocks")
+        xs = [L.apply_norm(p["norm1"], cfg, h) for p, h in zip(lp, hs)]
+        a, ks, vs = run.attn_prefill([p["attn"] for p in lp], xs, positions,
+                                     self_at)
+        hs = [h + y for h, y in zip(hs, a)]
+        xs = [L.apply_norm(p["norm_x"], cfg, h) for p, h in zip(lp, hs)]
+        a, xks, xvs = run.attn_prefill([p["xattn"] for p in lp], xs,
+                                       positions, cross_at, causal=False,
+                                       kv_xs=enc)
+        hs = [h + y for h, y in zip(hs, a)]
+        for name, ts, n in (("k", ks, Sc), ("v", vs, Sc),
+                            ("cross_k", xks, F), ("cross_v", xvs, F)):
+            if i == 0:
+                bufs[name] = [torch.zeros((Lc, t.shape[0], n) + t.shape[2:],
+                                          dtype=cache_dtype, device=t.device)
+                              for t in ts]
+            for buf, t in zip(bufs[name], ts):
+                buf[i, :, :t.shape[1]] = t
+        hs = run.ffn(lp, hs, "dec_blocks")
+    logits = run.unembed([h[:, -1:] for h in hs], "dec_norm")[:, 0]
+    cache: Params = {"pos": S,
+                     "kpos": sharding.Sharded.of(mesh, (), (Sc,), kpos)}
+    for name, n in (("k", Sc), ("v", Sc), ("cross_k", F), ("cross_v", F)):
+        cache[name] = _heads_leaf(run, bufs[name], Lc, n)
+    return logits, cache
+
+
+def encdec_decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                       cache: Params, mesh, *, compute_dtype=None):
+    """``encdec.decode_step`` on a tree placed over ``mesh`` and a cache
+    laid out by ``encdec_prefill``: (logits (B, V), whole on the first
+    position's device; the cache, written in place, ``pos`` advanced).
+    The self attention reads the position's heads through
+    ``flash_decode``, the cross attention its heads of the cross cache in
+    plain ops."""
+    cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
+    run = Run(cfg, mesh, params, token.shape[0])
+    pos = cache["pos"]
+    hs, _ = run.embed(run.split_rows(token[:, None]), pos, cdt)
+    self_at, cross_at = (run.heads(("dec_blocks", "attn")),
+                         run.heads(("dec_blocks", "xattn")))
+    ck, cv, kpos = (cache[k].blocks for k in ("k", "v", "kpos"))
+    xk, xv = cache["cross_k"].blocks, cache["cross_v"].blocks
+    for kp in kpos:
+        kp[L.cache_slot(cfg, pos, kp.shape[0])] = pos
+    for i in range(cfg.num_layers):
+        lp = run.layer(i, "dec_blocks")
+        xs = [L.apply_norm(p["norm1"], cfg, h) for p, h in zip(lp, hs)]
+        a = run.attn_decode([p["attn"] for p in lp], xs, pos,
+                            [t[i] for t in ck], [t[i] for t in cv], kpos,
+                            self_at)
+        hs = [h + y for h, y in zip(hs, a)]
+        xs = [L.apply_norm(p["norm_x"], cfg, h) for p, h in zip(lp, hs)]
+        a = run.cross_decode([p["xattn"] for p in lp], xs,
+                             [t[i] for t in xk], [t[i] for t in xv],
+                             cross_at)
+        hs = run.ffn(lp, [h + y for h, y in zip(hs, a)], "dec_blocks")
+    return run.unembed(hs, "dec_norm")[:, 0], {**cache, "pos": pos + 1}
+
+
+__all__ = ["Run", "Heads", "prefill", "decode_step", "embed",
+           "encdec_prefill", "encdec_decode_step"]

@@ -7,23 +7,21 @@ on ``batch.get("patches")``; ``build_decode_step``'s step returns the
 greedy next token and the cache.  ``compute_dtype`` is the activation
 dtype (None: ``layers.COMPUTE_DTYPE``, bf16).
 
-A mesh (``launch.mesh``) is taken as the reference takes it, with the
-param tree placed over it by ``serve_shardings`` and
+A mesh (``launch.mesh``) is taken as the reference takes it, for every
+family, with the param tree placed over it by ``serve_shardings`` and
 ``parallel.sharding.shard_tree``: the steps then run each position on its
 blocks, weights split over ``model`` and the batch over the data axes, in
-one process (``models.tp``), and return whole logits and tokens on the
-first position's device.  Their cache is laid out over the mesh: under
-the ``decode_shard_map`` flag its sequence is split (the reference's
-flash-decode over ``shard_map``), else its heads are as the K/V
-projections leave them.  A tree of whole tensors runs on the device it
-lies on; under ``decode_shard_map`` its cache's sequence is still laid
-out over the mesh (``lm.shard_cache``, ``lm.decode_step(shard_ctx=)``).
-The reference's residual-stream layout hint
-(``sharding.hidden_constraint``) is the identity here.
-
-Not ported on a mesh: whisper's encoder-decoder (``cross_attention``)
-with more than one position on the data axes, or under ``serve_tp_only``
-with a ``model`` axis; the builders raise ``NotImplementedError`` for it.
+one process (``models.tp``; whisper's encoder-decoder through
+``tp.encdec_prefill`` / ``tp.encdec_decode_step``), and return whole
+logits and tokens on the first position's device.  Their cache is laid
+out over the mesh: a decoder's under the ``decode_shard_map`` flag has its
+sequence split (the reference's flash-decode over ``shard_map``), else
+its heads (and whisper's cross ``k``/``v``) are as the K/V projections
+leave them.  A tree of whole tensors runs on the device it lies on; under
+``decode_shard_map`` a decoder's cache's sequence is still laid out over
+the mesh (``lm.shard_cache``, ``lm.decode_step(shard_ctx=)``).  The
+reference's residual-stream layout hint (``sharding.hidden_constraint``)
+is the identity here.
 """
 from __future__ import annotations
 
@@ -35,24 +33,6 @@ from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, lm, tp
 from repro_torch.parallel import sharding
-
-TP_ITEM = "ROADMAP.md Queue 1 item 6, tensor-parallel serving across cards"
-
-
-def _check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Refuse what the port does not execute on a mesh."""
-    if mesh is None or not cfg.cross_attention:
-        return
-    if sharding._dp_size(mesh) > 1:
-        raise NotImplementedError(
-            f"serving an encoder-decoder with the batch over the data axes "
-            f"of {mesh.shape} is not ported ({TP_ITEM})")
-    if perf_flags.FLAGS.serve_tp_only and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"serve_tp_only places an encoder-decoder's weights "
-            f"tensor-parallel over the model axis of {mesh.shape}; executing "
-            f"that placement is not ported ({TP_ITEM})")
-
 
 def _shard_ctx(cfg: ModelConfig, shape: ShapeConfig, mesh):
     """A whole tree's ``(mesh, batch axes, seq axes)`` for the flash-decode
@@ -66,16 +46,10 @@ def _shard_ctx(cfg: ModelConfig, shape: ShapeConfig, mesh):
     return mesh, None, seq_axes
 
 
-def _placed(cfg: ModelConfig, mesh, params) -> bool:
-    """Whether the step runs on the mesh's positions: a decoder's tree
-    placed over ``mesh``."""
-    if mesh is None or not sharding.is_placed(params):
-        return False
-    if cfg.cross_attention:
-        raise NotImplementedError(
-            f"an encoder-decoder on a tree placed over {mesh.shape} is not "
-            f"ported ({TP_ITEM})")
-    return True
+def _placed(mesh, params) -> bool:
+    """Whether the step runs on the mesh's positions: a tree placed over
+    ``mesh``."""
+    return mesh is not None and sharding.is_placed(params)
 
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
@@ -84,11 +58,16 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     """``prefill_step(params, batch) -> (last-position logits, cache)``;
     ``batch`` holds ``tokens`` and, per family, ``frames`` or
     ``patches``."""
-    _check_mesh(cfg, mesh)
     shard_ctx = _shard_ctx(cfg, shape, mesh)
 
     def prefill_step(params, batch):
-        if _placed(cfg, mesh, params):
+        if _placed(mesh, params) and cfg.cross_attention:
+            return tp.encdec_prefill(params, cfg, batch["tokens"],
+                                     batch["frames"], mesh,
+                                     cache_dtype=cache_dtype,
+                                     max_len=max_len,
+                                     compute_dtype=compute_dtype)
+        if _placed(mesh, params):
             return tp.prefill(params, cfg, batch["tokens"], mesh,
                               extra_embed=batch.get("patches"),
                               cache_dtype=cache_dtype, max_len=max_len,
@@ -115,11 +94,14 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     as ``lm.decode_step`` and ``encdec.decode_step`` update it.  The next
     token is the argmax (``greedy`` is the reference's only mode too).
     ``return_logits`` appends the step's logits (B, V) to the result."""
-    _check_mesh(cfg, mesh)
     shard_ctx = _shard_ctx(cfg, shape, mesh)
 
     def serve_step(params, cache, batch):
-        if _placed(cfg, mesh, params):
+        if _placed(mesh, params) and cfg.cross_attention:
+            logits, cache = tp.encdec_decode_step(
+                params, cfg, batch["token"], cache, mesh,
+                compute_dtype=compute_dtype)
+        elif _placed(mesh, params):
             logits, cache = tp.decode_step(params, cfg, batch["token"], cache,
                                            mesh, compute_dtype=compute_dtype)
         elif cfg.cross_attention:

@@ -489,32 +489,41 @@ def test_serve_step_builders_match_the_reference_builders(
 
 
 @pytest.mark.parametrize("arch", BUILDER_ARCHS)
-def test_serve_step_builders_refuse_a_mesh(arch):
-    """For the encoder-decoder, a mesh whose data axis holds more than one
-    position, or whose model axis would split the weights
-    (``serve_tp_only``), is refused, naming the tensor-parallel item; a
-    (1, 4) mesh is taken.  A decoder takes all three (its steps run on
-    the mesh's positions, ``tests/test_torch_tp_serve.py``)."""
+def test_serve_step_builders_refuse_a_mesh(arch, builder_models):
+    """Both families' builders take a mesh whose data axis holds two
+    positions and one whose model axis holds four, with and without
+    ``serve_tp_only``, and serve a tree placed over it by
+    ``serve_shardings`` (whole logits (B, V), the greedy tokens of the
+    whole tree's; the steps against the reference are in
+    ``tests/test_torch_tp_encdec.py`` and ``tests/test_torch_tp_serve.py``)."""
     from repro_torch import perf_flags
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import sharding
 
-    tc = get_config(arch).smoke()
+    _, tc, _, tree = builder_models[arch]
+    frames, toks, _ = inputs(tc, seed=7)
+    batch = {"tokens": torch.from_numpy(toks)}
+    if tc.cross_attention:
+        batch["frames"] = torch.from_numpy(frames)
     shape = ShapeConfig("t", MAX_LEN, 2, "decode")
+    kw = dict(cache_dtype=torch.float32, max_len=MAX_LEN,
+              compute_dtype=torch.float32)
+    params = port_params(tree)
+    want, _ = serve.build_prefill_step(tc, shape, **kw)(params, batch)
     data2 = Mesh(["cpu"] * 2, (2, 1), ("data", "model"))
     model4 = Mesh(["cpu"] * 4, (1, 4), ("data", "model"))
-    for build in (serve.build_prefill_step, serve.build_decode_step):
-        assert callable(build(tc, shape, mesh=model4))
-        perf_flags.set_flags(serve_tp_only=True)
+    for tp_only in (False, True):
+        perf_flags.set_flags(serve_tp_only=tp_only)
         try:
             for mesh in (data2, model4):
-                if tc.cross_attention:
-                    with pytest.raises(NotImplementedError,
-                                       match="tensor-parallel"):
-                        build(tc, shape, mesh=mesh)
-                else:
-                    assert callable(build(tc, shape, mesh=mesh))
+                pre = serve.build_prefill_step(tc, shape, mesh, **kw)
+                assert callable(serve.build_decode_step(tc, shape, mesh))
+                placed = sharding.shard_tree(params, serve.serve_shardings(
+                    tc, shape, mesh, params)[0])
+                logits, cache = pre(placed, batch)
+                assert logits.shape == (2, tc.vocab_size)
+                assert_rel(logits, want.numpy(), 1e-5)
+                assert torch.equal(logits.argmax(-1), want.argmax(-1))
+                assert isinstance(cache["k"], sharding.Sharded)
         finally:
             perf_flags.reset_flags()
-        if tc.cross_attention:
-            with pytest.raises(NotImplementedError, match="tensor-parallel"):
-                build(tc, shape, mesh=data2)

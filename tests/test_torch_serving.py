@@ -147,9 +147,10 @@ def test_async_fetch_matches_sync(bge_smoke):
 
 
 def test_sharded_backend_refuses_several_devices(bge_smoke):
-    """Several devices fan out now; what is still refused: an empty pool, a
-    data axis that is not a power of two, and a model axis that would
-    split the weights (tensor-parallel serving is not ported)."""
+    """Several devices fan out, and a model axis splits the weights (the
+    embedder served tensor parallel, ``tests/test_torch_tp_embed.py``);
+    what is still refused: an empty pool and a data axis that is not a
+    power of two."""
     from repro_torch.launch.mesh import Mesh
 
     cfg, params = bge_smoke
@@ -158,11 +159,13 @@ def test_sharded_backend_refuses_several_devices(bge_smoke):
     with pytest.raises(ValueError, match="power of two, got 3"):
         ShardedEmbedderBackend(cfg, params, mesh=Mesh(
             ["cpu"] * 3, (3, 1), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        ShardedEmbedderBackend(cfg, params, mesh=Mesh(
-            ["cpu"] * 4, (2, 2), ("data", "model")))
+    tp = ShardedEmbedderBackend(cfg, params, mesh=Mesh(
+        ["cpu"] * 4, (2, 2), ("data", "model")))
+    assert tp.device_count == 2 and tp.tensor_parallel
+    assert tp.min_batch_bucket == 2 and "@2devx2tp" in tp.name
     be = ShardedEmbedderBackend(cfg, params, devices=["cpu", "cpu"])
     assert be.device_count == 2 and "@2dev" in be.name
+    assert not be.tensor_parallel
 
 
 def test_sharded_dtype_defaults_to_the_serving_flag(bge_smoke):
