@@ -143,7 +143,7 @@ non-zero:
            round-robin on the visible cards, serve_tp_only (weights over
            model, the batch over data), bf16 weights, fp32 compute and
            cache, through steps/serve.py's builders on trees placed by
-           serve_shardings: qwen2-72b (24 layers), granite-moe-3b-a800m
+           serve_shardings: qwen2-72b (12 layers), granite-moe-3b-a800m
            and hymba-1.5b at full width, B 8, prompts of 64 and 200 tokens,
            16 decode steps fed the whole run's tokens; qwen2 again under
            decode_shard_map and at B 1 (its cache's sequence over all 8).
@@ -164,7 +164,25 @@ non-zero:
            and mesh ms a decode step (a run of 4 steps), peak memory.
            Launch counts are zeroed just before the fanned-out, the
            sharded and each counted mesh run and read just after; one
-           flash_decode launch a shard a layer a step in (b).  No speed
+           flash_decode launch a shard a layer a step in (b).  (e)
+           tp_train: the train step over (data 2, model 4) positions under
+           the train-mode rules (FSDP gathers over data inside each
+           rematerialised layer, weights split over model, the CE on each
+           position's vocab columns, gradients counted once a slice),
+           fp32 weights, B 8 x S 512 of the zipf TokenStream, for
+           stablelm-1.6b and hymba-1.5b at full width and depth,
+           whisper-tiny at full width and granite-moe-3b-a800m at 8 of
+           32 layers: one fp32-compute step against the whole tree's
+           (loss, ce, moe_aux, grad_norm within 1e-5 relative; every
+           gradient leaf at cosine >= 0.9999 and within 1e-4 of its
+           largest magnitude, every leaf of AdamW's m and v within 1e-5,
+           or within twice the whole tree's own spread, the same step a
+           half batch at a time, where that is larger; granite: routes
+           differing on at most 0.01%, its leaves held at the cosine), then
+           3 bf16 steps, launches zeroed just before and read just after,
+           each kernel's equal to the meta trace's calls x 3 (the three
+           backward kernels must run); ms a step (host clock), peak memory
+           against the meta trace's argument + temp bytes.  No speed
            across cards is claimed.
   train    stablelm-1.6b (24 layers, d 2048, 32 heads, d_ff 5632, vocab
            100352: 1.644 B params, fp32 weights, gradients and AdamW
@@ -305,6 +323,10 @@ BF16_WEIGHTS = ("internlm2-20b", "qwen3-moe-30b-a3b", "qwen2-72b")
 # holds: 24 of 80 layers (1.76 GB of bf16 weights a layer, 4.98 GB for the
 # embedding and the head); served in waves of 8
 DEPTH_CUTS = {"qwen2-72b": 24}
+# the mesh phase's tensor-parallel serve part (c) takes qwen2-72b's first
+# 12 of the 24 layers (b) runs (26.1 GB of bf16 weights): room in the run's
+# time for its train part (e)
+TP_DEPTH_CUTS = {"qwen2-72b": 12}
 GEN_B = {"qwen2-72b": 8}
 VLM_PATCH_B = 16                     # the patch-prefix prefill's batch
 # the encoder-decoder, at LM_B x LM_PROMPT + LM_NEW over its 1500 frames
@@ -342,7 +364,7 @@ MESH_ARCH, MESH_B, MESH_CACHE, MESH_PROMPTS, MESH_NEW = (
 # positions round-robin on the visible cards, serve_tp_only (weights over
 # model, the batch over data), bf16-resident weights, fp32 compute and
 # cache; B 8, prompts of 64 and 200 tokens, 16 decode steps forced to the
-# whole run's tokens; qwen2-72b (24 of 80 layers) again under
+# whole run's tokens; qwen2-72b (12 of 80 layers) again under
 # decode_shard_map, and at B 1 (its cache's sequence over all 8)
 TP_MESH = (2, 4)
 TP_ARCHS = ("qwen2-72b", "granite-moe-3b-a800m", "hymba-1.5b")
@@ -400,6 +422,31 @@ TRAIN_ARCHS = ("stablelm-1.6b", "hymba-1.5b", "whisper-tiny", "internvl2-2b",
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = (
     TRAIN_ARCHS[0], 8, 512, 20, 3e-4)
 TRAIN_LOSS_REL, TRAIN_GRAD_COSINE = 1e-5, 0.9999
+# the mesh phase's tensor-parallel train part: the train step on (data 2,
+# model 4) logical positions round-robin on the visible cards under the
+# train-mode rules (every weight's d_model-like dim over data, FSDP; its
+# d_ff, heads, vocab, experts or d_inner dim over model), fp32 weights,
+# B 8 x S 512 of the zipf TokenStream: stablelm-1.6b and hymba-1.5b (25
+# heads cut over 4: gathered projections) at full width and depth,
+# whisper-tiny at full width, granite-moe-3b-a800m at 8 of its 32 layers
+# (its whole step peaks at 70.87 GB: no room for a mesh copy beside it).
+# (a) one fp32-compute step on the mesh against the whole tree's, same
+# weights and batch: loss, ce, moe_aux and grad_norm within 1e-5
+# relative, every gradient leaf (unsharded) at cosine >= 0.9999 and within
+# 1e-4 of its largest magnitude, each leaf of AdamW's m and v after the step
+# within 1e-5 of its largest; or, where larger, within TP_SPREAD times the
+# whole tree's own spread (the same step a half batch at a time; its
+# largest leaf's: hymba-1.5b's 32 random layers amplify fp32 reordering to
+# ~1e-4, and v ~ g^2 doubles a gradient's relative error); granite: at most TP_ROUTE_SHARE of its routes differ,
+# its leaves (gradients, m, v) held at the cosine only.  (b)
+# TP_TRAIN_STEPS bf16 steps, launches = the meta-traced calls x steps
+TP_TRAIN_ARCHS = ("stablelm-1.6b", "hymba-1.5b", "whisper-tiny",
+                  "granite-moe-3b-a800m")
+TP_TRAIN_DEPTH = {"granite-moe-3b-a800m": 8}
+TP_TRAIN_STEPS = 3
+TP_TRAIN_REL, TP_TRAIN_GRAD_ABS, TP_TRAIN_MOMENT_ABS = 1e-5, 1e-4, 1e-5
+TP_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                    "rmsnorm_bwd", "ssm_scan", "ssm_scan_bwd")
 # the dryrun phase's steps (arch, batch, tokens): stablelm-1.6b's train
 # step, hymba-1.5b's first decode step at the generate phase's batch after
 # its 64-token prompts, bge-large-zh-v1.5's bf16-policy forward
@@ -2719,6 +2766,28 @@ def mesh_config(dev, arch: str):
     return cfg.replace(num_layers=DEPTH_CUTS.get(arch, cfg.num_layers))
 
 
+def tp_config(dev, arch: str):
+    """``mesh_config`` with the depth of the tensor-parallel serve part
+    (TP_DEPTH_CUTS) on the card."""
+    cfg = mesh_config(dev, arch)
+    if dev.type != "cuda" or arch not in TP_DEPTH_CUTS:
+        return cfg
+    return cfg.replace(num_layers=TP_DEPTH_CUTS[arch])
+
+
+def keep_layers(params, n: int) -> None:
+    """Cut a stacked tree to its first ``n`` layers in place, leaf by leaf
+    (each whole leaf dropped as its cut is made)."""
+    def cut(tree):
+        for k in list(tree):
+            if isinstance(tree[k], dict):
+                cut(tree[k])
+            else:
+                tree[k] = tree[k][:n].clone()
+
+    cut(params["blocks"])
+
+
 def mesh_decode(dev, devices, params) -> tuple:
     """qwen2-72b at its published width (its depth cut, bf16-resident
     weights, fp32 compute and cache) through steps/serve.py's builders on a
@@ -3076,7 +3145,7 @@ def mesh_tp(dev, devices, arch: str, params, shape: tuple = TP_MESH,
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    cfg = mesh_config(dev, arch)
+    cfg = tp_config(dev, arch)
     new = TP_NEW if cuda else 4
     cases = tp_cases(arch, cuda)
     mesh = Mesh(devices, shape, ("data", "model"))
@@ -3431,9 +3500,12 @@ def phase_mesh(args, dev) -> dict:
     (data 1, model 2) against its whole tree; (d) bge-large-zh-v1.5 under
     the four serving policies and jina-v2 in fp32 served tensor parallel
     on (data 2, model 4) through ShardedEmbedderBackend (bge fp32 also
-    through the WindVE engine), against the one-device backend.  The
-    launches of the path are those of the fanned-out, sequence-sharded
-    and tensor-parallel runs."""
+    through the WindVE engine), against the one-device backend; (e)
+    stablelm-1.6b, hymba-1.5b, whisper-tiny and granite-moe-3b-a800m (8
+    layers) trained on (data 2, model 4) under the train-mode rules,
+    against the whole tree (``mesh_tp_train``).  The launches of the path
+    are those of the fanned-out, sequence-sharded, tensor-parallel and
+    mesh train runs."""
     import gc
 
     import torch
@@ -3453,6 +3525,10 @@ def phase_mesh(args, dev) -> dict:
                             device=dev, dtype=torch.bfloat16)
         if arch == MESH_ARCH:
             dec, dec_counts = mesh_decode(dev, devices, params)
+        depth = tp_config(dev, arch).num_layers
+        if depth < cfg.num_layers:
+            keep_layers(params, depth)
+            gc.collect()
         tp[arch], counts = mesh_tp(dev, tp_devices, arch, params)
         del params
         gc.collect()
@@ -3479,8 +3555,14 @@ def phase_mesh(args, dev) -> dict:
     marks.append(time.perf_counter())
     tp_embed, embed_counts = mesh_tp_embed(dev, tp_devices)
     marks.append(time.perf_counter())
+    tp_train, train_counts = {}, {}
+    for arch in TP_TRAIN_ARCHS:
+        tp_train[arch], c = mesh_tp_train(dev, tp_devices, arch)
+        train_counts = {k: train_counts.get(k, 0) + c[k] for k in c}
+        emit({"phase": "mesh", "tp_train": tp_train[arch]})
+    marks.append(time.perf_counter())
     counts = {k: fan_counts[k] + dec_counts[k] + tp_counts[k]
-              + embed_counts[k] for k in fan_counts}
+              + embed_counts[k] + train_counts[k] for k in fan_counts}
     if dev.type == "cuda":
         for name in ("flash_attention", "pool_norm", "rmsnorm",
                      "flash_decode", "ssm_scan"):
@@ -3491,6 +3573,11 @@ def phase_mesh(args, dev) -> dict:
             require(embed_counts[name] > 0,
                     f"{name} was not launched on the tensor-parallel embed "
                     f"path: {embed_counts}")
+        # the tensor-parallel train part alone runs the backward kernels
+        for name in ("flash_attention_bwd", "rmsnorm_bwd", "ssm_scan_bwd"):
+            require(train_counts[name] > 0,
+                    f"{name} was not launched on the tensor-parallel train "
+                    f"path: {train_counts}")
         # one flash_decode launch a shard, a layer, a step
         want = (len(MESH_PROMPTS) * MESH_NEW * dec["layers"]
                 * MESH_POSITIONS)
@@ -3498,13 +3585,295 @@ def phase_mesh(args, dev) -> dict:
                 f"flash_decode launches {dec_counts['flash_decode']}, want "
                 f"{want}")
     return {"placement": [str(d) for d in devices], "fanout": fan,
-            "decode": dec, "tp": tp, "tp_embed": tp_embed, "launches": counts,
+            "decode": dec, "tp": tp, "tp_embed": tp_embed,
+            "tp_train": tp_train, "launches": counts,
             "launches_by_part": {"fanout": fan_counts, "decode": dec_counts,
-                                 "tp": tp_counts, "tp_embed": embed_counts},
+                                 "tp": tp_counts, "tp_embed": embed_counts,
+                                 "tp_train": train_counts},
             # (b) runs inside (c)'s loop, on qwen2-72b's tree
             "seconds_by_part": dict(zip(
                 ("fanout", "decode_and_tp_decoders", "tp_whisper",
-                 "tp_embed"), (b - a for a, b in zip(marks, marks[1:]))))}
+                 "tp_embed", "tp_train"),
+                (b - a for a, b in zip(marks, marks[1:]))))}
+
+
+def placed_bytes(tree) -> int:
+    """Bytes of the distinct tensors of a tree whose leaves may be placed
+    (``Sharded``: positions that share a block hold it once)."""
+    from repro_torch.parallel import sharding
+    from repro_torch.steps import optim
+
+    seen = {}
+    for leaf in optim.tree_leaves(tree):
+        blocks = (sharding.distinct_blocks(leaf)
+                  if isinstance(leaf, sharding.Sharded) else [leaf])
+        for t in blocks:
+            if hasattr(t, "element_size"):
+                seen[id(t)] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def placed_agreement(whole_tree, placed_tree) -> dict:
+    """{leaf path: (max-abs error, the whole leaf's largest magnitude,
+    cosine)} of a placed tree against a whole one, each placed leaf
+    unsharded on its first position's device in turn (mamba's halved
+    ``in_proj`` as its whole)."""
+    from repro_torch.parallel import sharding
+    from repro_torch.steps.checkpoint import _flatten
+
+    out = {}
+    for (key, w), (_, s) in zip(_flatten(whole_tree), _flatten(placed_tree)):
+        g = sharding.unshard(s)
+        if key.split("/")[-1] in sharding.HALVED:
+            g = g.flatten(-2)
+        g = g.to(w.device)
+        out[key] = ((g - w).abs().max().item(), w.abs().max().item(),
+                    leaf_cosines({"x": w}, {"x": g})["x"])
+        del g
+    return out
+
+
+def _rel(err: float, mag: float) -> float:
+    return err / mag if mag > 0 else err
+
+
+def half_batch_grads(cfg, shape, params, batch):
+    """The whole tree's gradient of the same fp32 loss computed a half
+    batch at a time, (g1 + g2) / 2: the same function in another
+    summation order, as the mesh's data split sums it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.steps import optim
+    from repro_torch.steps.train import build_loss_fn, value_and_grad
+
+    half = shape.global_batch // 2
+    loss = build_loss_fn(cfg, dataclasses.replace(shape, global_batch=half),
+                         compute_dtype=torch.float32)
+    gh = None
+    for rows in (slice(0, half), slice(half, None)):
+        _, g = value_and_grad(loss, params, {k: v[rows]
+                                             for k, v in batch.items()})
+        gh = g if gh is None else optim.tree_map(
+            lambda a, b: a.add_(b).mul_(0.5), gh, g)
+        del g
+    return gh
+
+
+def whole_spread(gh, gw, opt_w) -> dict:
+    """The whole tree's own spread, {leaf path: (gradient, m, v)}: each
+    leaf's max-abs difference between the half-batch gradient ``gh``
+    (``half_batch_grads``), AdamW's first m and v of it, and the whole
+    step's ``gw`` and ``opt_w``, over the leaf's largest magnitude.  Not
+    for an MoE model: its global dispatch takes its capacity from the
+    whole batch, so half a batch is another function."""
+    import torch
+
+    from repro_torch.steps import optim
+    from repro_torch.steps.checkpoint import _flatten
+
+    cfg = optim.AdamWConfig()
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(
+        optim.global_norm(gh), min=1e-9), max=1.0)
+    out = {}
+    for (key, g), (_, w), (_, m), (_, v) in zip(
+            _flatten(gh), _flatten(gw), _flatten(opt_w["m"]),
+            _flatten(opt_w["v"])):
+        gs = g * scale
+        out[key] = tuple(
+            _rel((a - b).abs().max().item(), b.abs().max().item())
+            for a, b in ((g, w), (gs * (1 - cfg.b1), m),
+                         (gs.square() * (1 - cfg.b2), v)))
+    return out
+
+
+def mesh_tp_train(dev, devices, arch: str) -> tuple:
+    """``arch``'s train step on (data 2, model 4) positions (``devices``,
+    a position each) against the whole tree's.  First the mesh step traced
+    on 8 meta positions (its kernel calls, argument and peak temp bytes);
+    then (a) one step in fp32 compute on the whole tree (loss and
+    gradients, then AdamW) and the same on a copy placed by
+    ``train_shardings`` + ``shard_tree``, the whole tree's gradients and
+    moments kept on the card to be compared leaf by leaf; (b)
+    TP_TRAIN_STEPS steps in bf16 compute on the mesh, launch counts zeroed
+    just before and read just after, each kernel's equal to the meta
+    trace's calls x the steps.  Returns (summary, launches of (b))."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding
+    from repro_torch.roofline import op_cost
+    from repro_torch.steps import inputs, optim
+    from repro_torch.steps.train import (build_loss_fn, build_train_step,
+                                         train_shardings, value_and_grad)
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = get_config(arch)
+    cfg = cfg.replace(num_layers=TP_TRAIN_DEPTH.get(arch, cfg.num_layers))
+    B, S = TRAIN_B, TRAIN_S
+    if not cuda:
+        cfg, B, S = cfg.smoke(), 4, 32
+    shape = ShapeConfig("train", S, B, "train")
+    axes = ("data", "model")
+    mesh = Mesh(devices, TP_MESH, axes)
+    stream = inputs.train_stream(cfg, shape, seed=0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab_size,
+           "mesh": mesh.shape, "placement": [str(d) for d in devices],
+           "B": B, "S": S}
+    if cfg.cross_attention:
+        out.update(encoder_layers=cfg.encoder_layers, frames=cfg.num_frames)
+
+    # the mesh step traced on meta positions: what (b) must launch
+    meta = Mesh(["meta"] * mesh.size, TP_MESH, axes)
+    ps = api.param_shapes(cfg)
+    mplaced = sharding.shard_tree(
+        ps, train_shardings(cfg, shape, meta, ps)[0][0])
+    margs = (mplaced, optim.init(mplaced),
+             {k: torch.as_tensor(v, device="meta")
+              for k, v in next(stream).items()})
+    stream.restore(0)
+    t0 = time.perf_counter()
+    cost = op_cost.analyse_step(build_train_step(cfg, shape, meta), *margs)
+    meta_calls = dict(sorted(cost.kernel_calls.items()))
+    arg_bytes = placed_bytes(margs)
+    out["meta"] = {"kernel_calls": meta_calls, "ops": cost.ops,
+                   "argument_bytes": arg_bytes,
+                   "temp_bytes": cost.peak_temp_bytes,
+                   "trace_s": time.perf_counter() - t0}
+    del ps, mplaced, margs
+    print(f"[chip_smoke] mesh tp_train {cfg.name}: meta trace "
+          f"{json.dumps(out['meta'])}", flush=True)
+
+    # (a) fp32 compute: the whole tree's step, then the placed copy's
+    params = api.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    out["params"] = sum(p.numel() for p in optim.tree_leaves(params))
+    psh = train_shardings(cfg, shape, mesh, params)[0][0]
+    placed = sharding.shard_tree(optim.tree_map(torch.clone, params), psh,
+                                 free=True)
+    batch = next(stream)
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    wr, mr = [], []
+    with moe_spy(routes=wr):
+        (lw, (cw, aw)), gw = value_and_grad(
+            build_loss_fn(cfg, shape, compute_dtype=f32), params, batch)
+    gh = None if cfg.is_moe else half_batch_grads(cfg, shape, params, batch)
+    opt_w = optim.init(params)
+    _, opt_w, om_w = optim.update(gw, opt_w, params)
+    spread = {} if gh is None else whole_spread(gh, gw, opt_w)
+    del params, gh
+    gc.collect()
+    sync()
+    whole_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with moe_spy(routes=mr):
+        (lm_, (cm, am)), gm = value_and_grad(
+            build_loss_fn(cfg, shape, mesh, compute_dtype=f32), placed,
+            batch)
+    opt = optim.init(placed)
+    _, opt, om = optim.update(gm, opt, placed)
+    sync()
+    mesh_s = time.perf_counter() - t0
+    metrics = {}
+    for name, w, m in (("loss", lw, lm_), ("ce", cw, cm), ("moe_aux", aw, am),
+                       ("grad_norm", om_w["grad_norm"], om["grad_norm"])):
+        w, m = w.item(), m.item()
+        metrics[name] = {"whole": w, "mesh": m,
+                         "rel": abs(m - w) / abs(w) if w else abs(m)}
+    grads = placed_agreement(gw, gm)
+    moments = {name: placed_agreement(opt_w[name], opt[name])
+               for name in ("m", "v")}
+    del gw, gm, opt_w
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    fa = {"metrics": metrics, "whole_s": whole_s, "mesh_s": mesh_s,
+          "leaves": len(grads),
+          # each leaf's (max-abs error, largest magnitude) of the gradient,
+          # m and v, and the whole tree's own spread of each
+          "by_leaf": {k: grads[k][:2] + moments["m"][k][:2]
+                      + moments["v"][k][:2] for k in grads},
+          "whole_spread_by_leaf": spread}
+    held = [all(v["rel"] <= TP_TRAIN_REL for v in metrics.values())]
+    for i, (name, leaves, base) in enumerate((
+            ("grad", grads, TP_TRAIN_GRAD_ABS),
+            ("m", moments["m"], TP_TRAIN_MOMENT_ABS),
+            ("v", moments["v"], TP_TRAIN_MOMENT_ABS))):
+        # every leaf within the bar, or within TP_SPREAD times the whole
+        # tree's own spread (its largest leaf's) where that is larger
+        # (granite: cosine only)
+        own = max(spread, key=lambda k: spread[k][i]) if spread else None
+        bar = max(base, TP_SPREAD * spread[own][i]) if spread else base
+        worst = max(leaves, key=lambda k: _rel(*leaves[k][:2]))
+        low = min(leaves, key=lambda k: leaves[k][2])
+        fa[name] = {"max_rel": _rel(*leaves[worst][:2]), "max_rel_leaf": worst,
+                    "bar": bar,
+                    "whole_spread": spread[own][i] if spread else None,
+                    "whole_spread_leaf": own,
+                    "min_cosine": leaves[low][2], "min_cosine_leaf": low}
+        held.append(leaves[low][2] >= TRAIN_GRAD_COSINE)
+        if not cfg.is_moe:
+            held.append(fa[name]["max_rel"] <= bar)
+    if cfg.is_moe:
+        # the forward's routes: a record a layer whole, one a position a
+        # layer on the mesh (the rest are the backward's recompute)
+        L = cfg.num_layers
+        rd, rt, _ = tp_route_rows(wr[:L], mr[:L * mesh.size], mesh.size, B)
+        fa.update(routes_differing=rd, routes=rt)
+        held.append(rd <= TP_ROUTE_SHARE * rt)
+    fa["held"] = all(held)
+    out["fp32_mesh_vs_whole"] = fa
+    del wr, mr
+    emit({"phase": "mesh", "tp_train_fp32": {"model": cfg.name, **fa}})
+    require(fa["held"], f"{cfg.name} fp32 train step on the mesh: {fa}")
+
+    # (b) the counted path: bf16 compute
+    step = build_train_step(cfg, shape, mesh)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    sync()
+    reset_launch_counts()                 # the mesh train path starts here
+    for _ in range(TP_TRAIN_STEPS):
+        b = next(stream)
+        t0 = time.perf_counter()
+        placed, opt, m = step(placed, opt, b)
+        losses.append(m["loss"].item())   # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    sync()
+    counts = launch_counts()              # ... and ends here
+    out.update(losses=losses, finite=all(math.isfinite(x) for x in losses),
+               step_ms=times, step_ms_median=statistics.median(times),
+               launches={k: counts[k] for k in TP_TRAIN_KERNELS})
+    if cuda:
+        peak = torch.cuda.max_memory_allocated(dev)
+        out.update(peak_memory_bytes=peak,
+                   argument_plus_temp_over_allocated=(
+                       (arg_bytes + cost.peak_temp_bytes) / peak))
+    require(out["finite"], f"{cfg.name}: a non-finite loss on the mesh")
+    if cuda:
+        for name, n in counts.items():
+            want = meta_calls.get(name, 0) * TP_TRAIN_STEPS
+            require(n == want, f"{cfg.name} on the mesh: {name} {n} "
+                               f"launches, want {want} (the meta trace's "
+                               f"calls x {TP_TRAIN_STEPS})")
+    del placed, opt, step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, counts
 
 
 def leaf_cosines(a, b, piece: int = 1 << 26) -> dict:

@@ -1,5 +1,5 @@
-"""Training driver: real steps of the reference's train step on one device,
-the reference's ``launch/train.py`` in PyTorch.
+"""Training entry point: real steps of the reference's train step on one device
+or over a mesh, the reference's ``launch/train.py`` in PyTorch.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
         --steps 20 --batch 8 --seq 128 --ckpt build/ck.npz [--device cpu]
@@ -11,6 +11,12 @@ forward and backward.  The CPU is used only when asked for
 zipfian ``data.workload.TokenStream``; ``--resume`` restores params,
 optimizer state and the stream's position from a checkpoint
 (``steps.checkpoint``).
+
+``train(production_mesh=True)`` trains over the reference's 16 x 16
+production mesh (256 cards; fewer raise, naming both counts), and
+``train(mesh=...)`` over a port ``launch.mesh.Mesh``: the params are placed
+by ``steps.train.train_shardings`` and each step runs on the mesh's
+positions (``models.tp``).
 """
 from __future__ import annotations
 
@@ -21,30 +27,43 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import api
+from repro_torch.parallel import sharding
 from repro_torch.steps import checkpoint, inputs, optim
-from repro_torch.steps.train import build_train_step
+from repro_torch.steps.train import build_train_step, train_shardings
 
 
 def train(arch: str, steps: int, batch: int, seq: int, smoke: bool = True,
           ckpt: str | None = None, resume: str | None = None,
           lr: float = 3e-4, log_every: int = 10, seed: int = 0,
-          device: str = "cuda"):
-    """Run ``steps`` train steps; returns (params, opt_state, losses)."""
+          device: str = "cuda", production_mesh: bool = False, mesh=None):
+    """Run ``steps`` train steps; returns (params, opt_state, losses).
+
+    ``device`` holds the whole tree (default the card; the CPU only when
+    asked for).  ``production_mesh`` takes the 16 x 16 production mesh
+    over the visible cards, ``mesh`` a given one: the params are drawn on
+    its first position's device and placed over it."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
-    dev = torch.device(device)
     shape = ShapeConfig("cli", seq_len=seq, global_batch=batch, kind="train")
-    mesh = make_host_mesh([dev])
+    if production_mesh:
+        mesh = make_production_mesh()
+    elif mesh is None:
+        mesh = make_host_mesh([torch.device(device)])
+    dev = mesh.device_list[0]
 
     gen = torch.Generator(dev).manual_seed(seed)
     params = api.init_params(cfg, gen, device=dev)
-    opt_state = optim.init(params)
     n_params = sum(p.numel() for p in optim.tree_leaves(params))
+    if mesh.size > 1:
+        params = sharding.shard_tree(
+            params, train_shardings(cfg, shape, mesh, params)[0][0],
+            free=True)
+    opt_state = optim.init(params)
     print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, "
-          f"batch={batch} seq={seq} steps={steps} on {dev}")
+          f"batch={batch} seq={seq} steps={steps} on {mesh}")
 
     stream = inputs.train_stream(cfg, shape, seed)
 

@@ -1,12 +1,16 @@
-"""Serving over a ``(data, model)`` mesh, run in one process over the
-mesh's positions: the decoders' steps (``prefill``, ``decode_step``),
-whisper's encoder-decoder steps (``encdec_prefill``,
-``encdec_decode_step``) and the embedder's forward (``embed``, which
-``core.sharded_backend`` serves).
+"""Serving and training over a ``(data, model)`` mesh, run in one process
+over the mesh's positions: the decoders' steps (``prefill``,
+``decode_step``), whisper's encoder-decoder steps (``encdec_prefill``,
+``encdec_decode_step``), the embedder's forward (``embed``, which
+``core.sharded_backend`` serves) and the training forwards (``forward``,
+``encdec_forward``, which ``steps.train`` differentiates: autograd runs
+back through the collectives, a gather's backward slicing its gradient
+into the blocks and a sum's handing its gradient to every member).
 
 Each takes a param tree placed over the mesh
 (``parallel.sharding.shard_tree`` under ``steps/serve.serve_shardings``,
-or ``serve_embed_shardings`` for the embedder) and runs each layer at
+``serve_embed_shardings`` for the embedder, ``steps/train.train_shardings``
+for training) and runs each layer at
 every position in turn, on that position's blocks; what GSPMD inserts
 between the reference's sharded operands is here an explicit collective
 of ``parallel.collectives``:
@@ -78,8 +82,7 @@ from repro_torch import perf_flags
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import embedder as E
 from repro_torch.models import layers as L
-from repro_torch.models.embedder import layer_params
-from repro_torch.models.lm import _mix, add_positions, cache_len
+from repro_torch.models.lm import _mix, _remat, add_positions, cache_len
 from repro_torch.models.quantize import SCALE_SUFFIX
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import sharding
@@ -167,6 +170,7 @@ class Run:
         self.specs = {k: s.spec for k, s in flat.items()}
         self.local = [_unflat({k: s.blocks[p] for k, s in flat.items()})
                       for p in range(self.n)]
+        self._views: Dict[str, List[List[Params]]] = {}
         # the decoders' (and the embedder's) attention block
         self.attn = self.heads(ATTN)
         self.q_split, self.q_heads = self.attn.q_split, self.attn.q_heads
@@ -232,10 +236,35 @@ class Run:
         return [t[name] for t in self._gather_data(
             [{name: loc[name]} for loc in self.local], (), 0)]
 
+    def views(self, stack: str = "blocks") -> List[List[Params]]:
+        """``stack``'s layers at every position, ungathered: each block
+        unbound along its layer dim once (``lm.layer_views``; positions
+        that share a block share its views), so under autograd a stacked
+        block's gradient is stacked once, not added layer by layer."""
+        if stack not in self._views:
+            unbound: Dict[int, Tuple[torch.Tensor, ...]] = {}
+
+            def cut(t):
+                if id(t) not in unbound:
+                    unbound[id(t)] = torch.unbind(t, 0)
+                return unbound[id(t)]
+
+            flats = [_flat(loc[stack]) for loc in self.local]
+            n = next(iter(flats[0].values())).shape[0]
+            self._views[stack] = [
+                [_unflat({k: cut(t)[i] for k, t in f.items()})
+                 for f in flats] for i in range(n)]
+        return self._views[stack]
+
+    def gather_layer(self, views: List[Params],
+                     stack: str = "blocks") -> List[Params]:
+        """One layer's ``views`` (a position each) gathered over the data
+        axes where their specs split them."""
+        return self._gather_data(views, (stack,), 1)
+
     def layer(self, i: int, stack: str = "blocks") -> List[Params]:
         """Layer i of ``stack``'s params at every position, gathered."""
-        return self._gather_data(
-            [layer_params(loc[stack], i) for loc in self.local], (stack,), 1)
+        return self.gather_layer(self.views(stack)[i], stack)
 
     def sum_model(self, xs):
         return C.all_reduce_sum(xs, self.mesh, self.model)
@@ -271,17 +300,21 @@ class Run:
                for p, h in enumerate(hs)]
         return [o[0] for o in out], [o[1] for o in out]
 
+    def head(self) -> Tuple[List[torch.Tensor], bool]:
+        """The unembedding (D, V) block at every position, gathered over
+        the data axes (the embedding's transpose when tied), and whether
+        its vocab columns are split over ``model``."""
+        if self.cfg.tie_embeddings:
+            return ([e.T for e in self.top("embed")],
+                    self.split(("embed",), 0))
+        return self.top("lm_head"), self.split(("lm_head",), -1)
+
     def unembed(self, hs, norm: str = "final_norm") -> torch.Tensor:
         """The whole logits (B, S, V) of hs, after the ``norm`` leaf, on
         the first position's device."""
         cfg = self.cfg
         norm = self.top(norm)
-        if cfg.tie_embeddings:
-            heads = [e.T for e in self.top("embed")]
-            vsplit = self.split(("embed",), 0)
-        else:
-            heads = self.top("lm_head")
-            vsplit = self.split(("lm_head",), -1)
+        heads, vsplit = self.head()
         out = []
         for p, h in enumerate(hs):
             x = L.apply_norm(norm[p], cfg, h)
@@ -521,23 +554,32 @@ class Run:
     def ffn(self, lp, hs, stack: str = "blocks", act_quant: bool = False):
         """The norm2 + MLP / MoE residual at every position, on layer
         params ``lp`` of ``stack``."""
+        return self.ffn_aux(lp, hs, stack, act_quant)[0]
+
+    def ffn_aux(self, lp, hs, stack: str = "blocks",
+                act_quant: bool = False):
+        """``ffn`` and the MoE load-balance loss of the whole batch at every
+        position (None for a dense block)."""
         cfg = self.cfg
         if not cfg.d_ff:
-            return hs
+            return hs, None
         xs = [L.apply_norm(p["norm2"], cfg, h) for p, h in zip(lp, hs)]
         ps = [p["ffn"] for p in lp]
         down = "w_down" if cfg.act == "silu" else "w_out"
+        aux = None
         if cfg.is_moe:
-            ys = self._moe(ps, xs)
+            ys, aux = self._moe(ps, xs)
         elif self.split((stack, "ffn", down), 1):
             ys = self.rows_proj(ps, down, [
                 L.mlp_hidden(p, cfg, x, act_quant) for p, x in zip(ps, xs)],
                 act_quant)
         else:
             ys = [L.apply_mlp(p, cfg, x, act_quant) for p, x in zip(ps, xs)]
-        return [h + y for h, y in zip(hs, ys)]
+        return [h + y for h, y in zip(hs, ys)], aux
 
     def _moe(self, ps, xs):
+        """(the MoE outputs, the whole batch's load-balance loss) at every
+        position."""
         cfg = self.cfg
         experts = self.split(("blocks", "ffn", "w_gate"), 1)
         dims = self.split(("blocks", "ffn", "w_down"), 2)
@@ -546,16 +588,38 @@ class Run:
         if gathered:
             # the global dispatch's capacity counts every token of the batch
             xs = C.all_gather(xs, self.mesh, self.dp, 0)
-        ys = []
+        ys, auxs = [], []
         for p, (pp, x) in enumerate(zip(ps, xs)):
             first = self.mi[p] * pp["w_gate"].shape[0] if experts else 0
             if row:
-                y = L._apply_moe_row(pp, cfg, x, first)[0]
+                y, aux = L._apply_moe_row(pp, cfg, x, first)
             else:
-                y = L._apply_moe_row(pp, cfg, x.reshape(1, -1, x.shape[-1]),
-                                     first)[0].reshape(x.shape)
+                y, aux = L._apply_moe_row(
+                    pp, cfg, x.reshape(1, -1, x.shape[-1]), first)
+                y = y.reshape(x.shape)
             ys.append(y[self.rows(p)] if gathered else y)
-        return self.sum_model(ys) if experts or dims else ys
+            auxs.append(aux)
+        if row and self.b_split:
+            auxs = self._row_aux(ps, xs)
+        return (self.sum_model(ys) if experts or dims else ys), auxs
+
+    def _row_aux(self, ps, xs) -> List[torch.Tensor]:
+        """Under ``moe_row_dispatch`` with the batch split over the data
+        axes: the whole batch's load-balance loss from each position's
+        router probabilities and assignment counts, summed over the data
+        axes (a position's own loss covers its rows only)."""
+        cfg = self.cfg
+        E, K = cfg.num_experts, cfg.experts_per_token
+        stats = []
+        for pp, x in zip(ps, xs):
+            probs, _, eidx = L.moe_route(pp, cfg, x)
+            counts = torch.zeros(E, dtype=torch.float32, device=x.device)
+            counts.index_add_(0, eidx.reshape(-1),
+                              torch.ones(eidx.numel(), device=x.device))
+            stats.append(torch.cat([probs.sum((0, 1)), counts]))
+        n = self.B * xs[0].shape[1]
+        return [E * (t[:E] / n * (t[E:] / (n * K))).sum()
+                for t in C.all_reduce_sum(stats, self.mesh, self.dp)]
 
     # -- cache layout -------------------------------------------------------
     def seq_axes(self) -> Tuple[str, ...]:
@@ -726,6 +790,91 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     return run.unembed(hs)[:, 0], {**cache, "pos": pos + 1}
 
 
+# -- training -----------------------------------------------------------------
+def _aux_total(run: Run, auxs) -> torch.Tensor:
+    """The layers' load-balance losses (the first position's of each: every
+    position holds the whole batch's) summed, 0-dim fp32 on the first
+    position's device, as ``lm.forward`` sums them."""
+    if auxs:
+        return torch.stack(auxs).sum()
+    return torch.zeros((), dtype=torch.float32, device=run.devices[0])
+
+
+def _final(run: Run, hs, norm: str) -> List[torch.Tensor]:
+    norms = run.top(norm)
+    return [L.apply_norm(norms[p], run.cfg, h) for p, h in enumerate(hs)]
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, mesh, *,
+            extra_embed: Optional[torch.Tensor] = None, compute_dtype=None
+            ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``lm.forward(..., remat=True, return_hidden=True)`` on a tree placed
+    over ``mesh``: (every position's final-normed hidden states of its
+    batch rows (b, S, D), a list in mesh order; the MoE load-balance loss
+    summed over the layers, 0-dim fp32 on the first position's device).
+
+    Each layer runs under ``lm._remat`` on the positions' ungathered blocks
+    (``Run.views``): the FSDP gathers over the data axes happen inside the
+    rematerialised function, so a gathered weight is neither saved for the
+    backward nor held past its layer; the backward gathers it again."""
+    cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
+    run = Run(cfg, mesh, params, tokens.shape[0])
+    extra = None if extra_embed is None else run.split_rows(extra_embed)
+    hs, positions = run.embed(run.split_rows(tokens), 0, cdt, extra)
+
+    def layer(hs, views):
+        lp = run.gather_layer(views)
+        xs = [L.apply_norm(p["norm1"], cfg, h) for p, h in zip(lp, hs)]
+        a = m = [None] * run.n
+        if cfg.has_attention:
+            a = run.attn_prefill([p["attn"] for p in lp], xs, positions)[0]
+        if cfg.has_ssm:
+            m = run.mamba_prefill([p["mamba"] for p in lp], xs)[0]
+        return run.ffn_aux(lp, [_mix(cfg, h, a[p], m[p])
+                                for p, h in enumerate(hs)])
+
+    step = _remat(layer)
+    auxs = []
+    for views in run.views():
+        hs, aux = step(hs, views)
+        if aux is not None:
+            auxs.append(aux[0])
+    return _final(run, hs, "final_norm"), _aux_total(run, auxs)
+
+
+def encdec_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   frames: torch.Tensor, mesh, *, compute_dtype=None
+                   ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``encdec.forward(..., remat=True, return_hidden=True)`` on a tree
+    placed over ``mesh``: (every position's final-normed decoder states of
+    its rows, a list in mesh order; a zero auxiliary loss).  The encoder
+    runs as ``encdec_prefill``'s, not rematerialised (as the whole
+    ``encdec.forward``); each decoder layer runs under ``lm._remat`` with
+    its gathers inside, as in ``forward``."""
+    cdt = L.COMPUTE_DTYPE if compute_dtype is None else compute_dtype
+    run = Run(cfg, mesh, params, tokens.shape[0])
+    enc = _encode(run, run.split_rows(frames), cdt)
+    hs, positions = run.embed(run.split_rows(tokens), 0, cdt)
+    self_at, cross_at = (run.heads(("dec_blocks", "attn")),
+                         run.heads(("dec_blocks", "xattn")))
+
+    def layer(hs, enc, views):
+        lp = run.gather_layer(views, "dec_blocks")
+        xs = [L.apply_norm(p["norm1"], cfg, h) for p, h in zip(lp, hs)]
+        a = run.attn_prefill([p["attn"] for p in lp], xs, positions,
+                             self_at)[0]
+        hs = [h + y for h, y in zip(hs, a)]
+        xs = [L.apply_norm(p["norm_x"], cfg, h) for p, h in zip(lp, hs)]
+        a = run.attn_prefill([p["xattn"] for p in lp], xs, positions,
+                             cross_at, causal=False, kv_xs=enc)[0]
+        return run.ffn(lp, [h + y for h, y in zip(hs, a)], "dec_blocks")
+
+    step = _remat(layer)
+    for views in run.views("dec_blocks"):
+        hs = step(hs, enc, views)
+    return _final(run, hs, "dec_norm"), _aux_total(run, [])
+
+
 # -- the embedder -------------------------------------------------------------
 def embed(params: Params, cfg: ModelConfig, tokens, mask, mesh, *,
           compute_dtype=None, act_quant: bool = False) -> torch.Tensor:
@@ -880,4 +1029,5 @@ def encdec_decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
 
 __all__ = ["Run", "Heads", "prefill", "decode_step", "embed",
-           "encdec_prefill", "encdec_decode_step"]
+           "encdec_prefill", "encdec_decode_step", "forward",
+           "encdec_forward"]

@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.parallel import collectives as C
 
 STACK_KEYS = ("blocks", "enc_blocks", "dec_blocks")
 # leaves whose last dim is two halves split alike: [x | z] of mamba's in_proj
@@ -401,6 +402,57 @@ def is_placed(tree) -> bool:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()), None)
     return isinstance(tree, Sharded)
+
+
+def replicated_axes(sharded: Sharded) -> Tuple[str, ...]:
+    """The mesh axes ``sharded``'s spec does not name: the positions that
+    differ only along them hold the same slice."""
+    named = {a for e in sharded.spec for a in _axes(e)}
+    return tuple(a for a in sharded.mesh.axis_names if a not in named)
+
+
+def distinct_blocks(sharded: Sharded) -> List[torch.Tensor]:
+    """Each block tensor of ``sharded`` once (positions may share one), in
+    position order."""
+    seen: Dict[int, torch.Tensor] = {}
+    for blk in sharded.blocks:
+        seen.setdefault(id(blk), blk)
+    return list(seen.values())
+
+
+def sum_copies(sharded: Sharded,
+               grad_of: Callable[[torch.Tensor], torch.Tensor]) -> Sharded:
+    """The gradient of a placed leaf, ``grad_of(block)`` being what autograd
+    gave each distinct block: every distinct slice's gradient counted once.
+
+    Positions that share a block share its gradient: autograd has already
+    added every use of the block into it, so it is not summed again.  The
+    copies of one slice that are distinct blocks (on different devices, or
+    cloned) each hold a partial gradient; these are summed over the slice's
+    group (``collectives.groups`` along the axes the spec does not name) in
+    that group's fixed order, first copy first, and every copy gets the sum
+    on its own device.  The result shares blocks as ``sharded`` does."""
+    mesh, devices = sharded.mesh, sharded.mesh.device_list
+    out: List[torch.Tensor] = [None] * mesh.size
+    for g in C.groups(mesh, replicated_axes(sharded)):
+        first: Dict[int, int] = {}
+        for p in g:
+            first.setdefault(id(sharded.blocks[p]), p)
+        if len(first) == 1:
+            grad = grad_of(sharded.blocks[g[0]])
+            for p in g:
+                out[p] = grad
+            continue
+        home = devices[g[0]]
+        total = None
+        for p in first.values():
+            part = grad_of(sharded.blocks[p]).to(home)
+            total = part if total is None else total + part
+        got = {key: total.to(devices[p]) for key, p in first.items()}
+        for p in g:
+            out[p] = got[id(sharded.blocks[p])]
+    return Sharded(mesh, sharded.spec, sharded.shape, out,
+                   list(sharded.index))
 
 
 def local_tree(sharded_tree, position: int) -> Any:

@@ -12,6 +12,11 @@ checkpoint either package writes loads in the other.
 bfloat16 leaves are refused with a ``TypeError`` naming the leaf: numpy
 holds bf16 only through ``ml_dtypes``, which the card's machine lacks.  The
 training state is fp32 (params and moments) and int32 (the step).
+
+A state placed over a mesh (``parallel.sharding.Sharded`` leaves) is saved
+whole, one entry a leaf, as the reference saves its global arrays (mamba's
+``in_proj``, placed as two halves, as its (..., 2 * d_inner) whole); a
+placed template loads each leaf back under its spec on its mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.parallel import sharding
 
 
 def _flatten(tree, path: Tuple = ()) -> List[Tuple[str, Any]]:
@@ -36,7 +43,19 @@ def _flatten(tree, path: Tuple = ()) -> List[Tuple[str, Any]]:
     return [("/".join(path), tree)]
 
 
+def _halved(key: str) -> bool:
+    return key.split("/")[-1] in sharding.HALVED
+
+
+def _whole(key: str, leaf: sharding.Sharded) -> torch.Tensor:
+    """A placed leaf as the reference's whole array, on the CPU."""
+    t = sharding.unshard(leaf, "cpu")
+    return t.flatten(-2) if _halved(key) else t
+
+
 def _to_numpy(key: str, leaf) -> np.ndarray:
+    if isinstance(leaf, sharding.Sharded):
+        leaf = _whole(key, leaf)
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"{key}: a bfloat16 leaf has no numpy dtype "
@@ -74,8 +93,9 @@ def _unflatten(like, leaves, path: Tuple = ()):
 
 def load(path: str, like: Any) -> Tuple[Any, Dict[str, Any]]:
     """Restore into the structure of ``like`` (a tree of tensors, meta
-    tensors included): each leaf takes the reference leaf's dtype and
-    device (the CPU for a meta tensor).  A missing key raises
+    tensors included, or of placed ``Sharded`` leaves): each leaf takes the
+    reference leaf's dtype and device (the CPU for a meta tensor), a placed
+    leaf its spec on its mesh (``sharding.shard``).  A missing key raises
     ``KeyError``, a shape that differs ``ValueError``, a bfloat16 array
     ``TypeError``."""
     with np.load(path) as data:
@@ -85,14 +105,21 @@ def load(path: str, like: Any) -> Tuple[Any, Dict[str, Any]]:
             if key not in data:
                 raise KeyError(f"checkpoint missing {key!r}")
             arr = data[key]
-            if tuple(arr.shape) != tuple(ref.shape):
+            placed = isinstance(ref, sharding.Sharded)
+            shape = tuple(ref.shape)
+            if placed and _halved(key):
+                shape = shape[:-2] + (2 * shape[-1],)
+            if tuple(arr.shape) != shape:
                 raise ValueError(
-                    f"{key}: shape {arr.shape} != expected "
-                    f"{tuple(ref.shape)}")
+                    f"{key}: shape {arr.shape} != expected {shape}")
             if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
                 raise TypeError(f"{key}: a bfloat16 array ({arr.dtype}) "
                                 f"needs ml_dtypes; save the state in fp32")
+            t = torch.from_numpy(np.array(arr))
+            if placed:
+                t = t.to(ref.blocks[0].dtype).reshape(ref.shape)
+                leaves[key] = sharding.shard(t, ref.spec, ref.mesh)
+                continue
             device = "cpu" if ref.device.type == "meta" else ref.device
-            leaves[key] = torch.from_numpy(np.array(arr)).to(
-                device=device, dtype=ref.dtype)
+            leaves[key] = t.to(device=device, dtype=ref.dtype)
     return _unflatten(like, leaves), meta

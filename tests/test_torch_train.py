@@ -35,6 +35,7 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import api, layers as L  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.steps import checkpoint, inputs, optim  # noqa: E402
 from repro_torch.steps.train import (build_loss_fn,  # noqa: E402
                                      build_train_step, chunked_ce,
@@ -233,12 +234,28 @@ def test_train_shardings_equal_the_reference_specs():
 
 
 def test_a_mesh_of_several_devices_is_refused():
+    """A mesh of several devices is no longer refused (the name is kept):
+    a tree placed over (4, 1) (B 2, the batch whole at every data
+    position) and over (2, 2) CPU positions takes the step, and its loss
+    equals the one-device loss within 1e-6 relative."""
     cfg = get_config("stablelm-1.6b").smoke()
-    mesh = Mesh(["cpu"] * 4, (4, 1), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_train_step(cfg, SHAPE, mesh)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    batch = next(inputs.train_stream(cfg, SHAPE, 0))
     one = Mesh(["cpu"], (1, 1), ("data", "model"))
-    build_loss_fn(cfg, SHAPE, one)          # one device is the port's case
+    (want, _), _ = value_and_grad(
+        build_loss_fn(cfg, SHAPE, one, compute_dtype=torch.float32),
+        params, batch)
+    for shape in ((4, 1), (2, 2)):
+        mesh = Mesh(["cpu"] * 4, shape, ("data", "model"))
+        placed = sharding.shard_tree(
+            optim.tree_map(torch.clone, params),
+            train_shardings(cfg, SHAPE, mesh, params)[0][0])
+        step = build_train_step(cfg, SHAPE, mesh,
+                                compute_dtype=torch.float32)
+        _, opt, m = step(placed, optim.init(placed), batch)
+        assert sharding.is_placed(opt["m"]) and int(opt["step"]) == 1
+        assert float(m["loss"]) == pytest.approx(float(want), rel=1e-6)
 
 
 # -------------------------------------------------------------------- CLI --
